@@ -7,17 +7,22 @@ Phases, in order (any failure exits non-zero, and no result line is
 printed):
 
 1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions;
-2. build: the SW kernels (csrc/sw_scan.cu, nvcc for sm_90a), the native
-   host library and the ALP oracle, compiled from this checkout in
+2. build: every kernel source (csrc/*.cu, one nvcc each for sm_90a), the
+   native host library and the ALP oracle, compiled from this checkout in
    parallel;
-3. parity: every kernel against its plain PyTorch version on the card,
-   bit-exact (int32 equality);
-4. timing: each kernel at the main path's shape (4096 x 256 x 256) with
-   CUDA events, beside its plain version and its bound;
-5. cpu-vs-gpu: the first 2,000 reads aligned by the port's CLI on
-   ``cpu`` (plain versions) and on ``cuda``; the reports must be
-   byte-identical;
-6. align: the align task at full size through ``sortmerna_tpu_torch.cli``
+3. parity: every SW kernel against its plain PyTorch version on the card,
+   bit-exact (int32 equality): sw_scan, sw_fused, and the batch-major
+   sw_scan2 (4096 x 256 x 256 and 512 x 4096 x 256, both terminate
+   modes) and sw_fused2 (4096 x 256 x 256, a ragged 300 x 256 x 256,
+   64 x 2048 x 2048);
+4. timing: each SW kernel at the main path's block shape (4096 x 256 x
+   256) with CUDA events, beside its plain version and its bound;
+5. cpu-vs-gpu: the first 2,000 reads aligned by the port's CLI on ``cpu``
+   (plain versions) and on ``cuda``; the reports must be byte-identical;
+6. probe: seed_probe and seed_compact against their plain versions on
+   65,536 windows cut from the reads (a quarter with 1-2 point edits)
+   against the workload's index part, bit-exact, then timed;
+7. align: the align task at full size through ``sortmerna_tpu_torch.cli``
    on ``cuda`` -- a synthetic 16S-like database of 4,000 sequences of
    1,300-1,600 nt (about 6 Mnt, 40 families, members about 8% apart) and
    100,000 reads of 100-150 nt (half cut from the database with 0-3
@@ -25,21 +30,27 @@ printed):
    ``sw_fused`` launch count must be > 0.  It also reports the kernels'
    device time on that run (CUDA events around each launch) and the
    port's host stage timers (``util.timed``);
-7. host-path: the python traverse (native library switched off with
+8. pallas2-align: the same run with ``SMR_PALLAS=2``: every wave block
+   through ``sw_fused2`` (launches > 0, ``sw_fused`` none), reports
+   byte-identical to phase 7's;
+9. device-probe: 2,000 reads with ``-device_probe`` on ``cpu`` and on
+   ``cuda`` (byte-identical reports), then the full run with
+   ``-device_probe`` on ``cuda``: ``seed_probe`` and ``seed_compact``
+   launches > 0, reports byte-identical to phase 7's;
+10. host-path: the python traverse (native library switched off with
    SMR_NO_NATIVE=1, in a child process) on 200 reads, whose SW jobs go
    through ``TorchSwBackend.batch`` -> the ``sw_scan`` kernel.
 
 Before the last line it prints the card line and one JSON line with the
-kernels (launches on their path, ms, plain ms, bound); the last line is
-``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
-chiprun_out/chip_smoke/.
+six kernels (launches on their path, ms, plain ms, bound); the last line
+is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
+chiprun_out/chip_smoke/.  It takes about five minutes.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -58,8 +69,10 @@ T0 = time.perf_counter()
 # the note of csrc/sw_scan.cu.
 OPS_PER_CELL = 6
 INT32_LANES_PER_SM = 64      # CUDA programming guide, cc 9.0 throughput
-N_READS = 100000             # reads of the align phase
+N_READS = 100000             # reads of the align phases
+N_WINDOWS = 65536            # windows of the probe phase (one full batch)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+SECTOR = 32                  # bytes: the least a random lookup reads
 
 
 def log(msg: str) -> None:
@@ -96,6 +109,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def launches() -> dict:
+    """Every kernel's launch count since the last reset_launches()."""
+    from sortmerna_tpu_torch.ops import seed_search as S
+    from sortmerna_tpu_torch.ops import sw_kernels as K
+    return dict(K.LAUNCHES, **S.LAUNCHES)
+
+
+def reset_launches() -> None:
+    from sortmerna_tpu_torch.ops import seed_search as S
+    from sortmerna_tpu_torch.ops import sw_kernels as K
+    K.reset_launches()
+    S.reset_launches()
+
+
 # ---------------------------------------------------------------- inputs
 
 
@@ -113,7 +140,7 @@ MAX_ABS_ERR = {}
 
 
 def equal_or_raise(name, got, want):
-    """Bit-exact (int32 equality) or raise; records the max |got - want|
+    """Bit-exact (integer equality) or raise; records the max |got - want|
     per kernel for the kernels line."""
     import torch
     err = 0
@@ -135,7 +162,7 @@ def equal_or_raise(name, got, want):
 
 def phase_build():
     from sortmerna_tpu_torch import native
-    from sortmerna_tpu_torch.ops import sw_kernels
+    from sortmerna_tpu_torch.ops import seed_search, sw_kernels
     from sortmerna_tpu_torch.stats import alp_exact
     errs = []
     done = {}
@@ -149,7 +176,7 @@ def phase_build():
         done[name] = time.perf_counter() - t
 
     ths = [threading.Thread(target=run, args=a) for a in (
-        ("sw_kernels (nvcc)", lambda: sw_kernels.build(force=True)),
+        ("kernels (nvcc)", lambda: sw_kernels.build(force=True)),
         ("native", native.get_lib),
         ("alp_oracle", alp_exact.oracle_bin))]
     for t in ths:
@@ -164,10 +191,17 @@ def phase_build():
         # the package ships the ALP tree, so the reference statistics must
         # come from it, not from the estimator
         raise RuntimeError("the ALP oracle did not build")
-    sw_kernels.load()
-    shutil.copy(sw_kernels.BUILD_LOG, os.path.join(OUT_DIR, "ptxas.txt"))
+    stems = sorted(p.stem for p in sw_kernels.CSRC.glob("*.cu"))
+    for stem in ("sw_scan", "sw_scan2"):
+        sw_kernels.load_library(stem)
+    seed_search._lib()
+    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
+        for stem in stems:
+            f.write(f"==== csrc/{stem}.cu\n"
+                    + sw_kernels.build_log(stem).read_text())
     log("build: " + ", ".join(f"{k} {v:.1f}s" for k, v in done.items())
-        + "; ptxas report in chiprun_out/chip_smoke/ptxas.txt")
+        + f" ({', '.join(stems)}); ptxas report in "
+        "chiprun_out/chip_smoke/ptxas.txt")
 
 
 def phase_parity(mat):
@@ -177,29 +211,38 @@ def phase_parity(mat):
     from sortmerna_tpu_torch.testing import fused_block
     rng = np.random.default_rng(123)
     dev = torch.device("cuda")
-    for (B, Lq, Lr) in ((4096, 256, 256), (64, 4096, 256)):
-        Q, rv, R, cv, _, _ = scan_inputs(rng, B, Lq, Lr, dev)
-        for term in (False, True):
-            ts = None
-            if term:      # stop at the forward best: the begin-pass regime
-                ts = K.sw_scan_plain(Q, rv, R, cv, mat, 5, 2, False,
-                                     None)[0]
-            got = K.sw_scan(Q, rv, R, cv, mat, 5, 2, term, ts)
+    scans = (("sw_scan", K.sw_scan, K.sw_scan_plain,
+              ((4096, 256, 256), (64, 4096, 256))),
+             ("sw_scan2", K.sw_scan2, K.sw_scan2_plain,
+              ((4096, 256, 256), (512, 4096, 256))))
+    for name, kernel, plain, shapes in scans:
+        for (B, Lq, Lr) in shapes:
+            Q, rv, R, cv, _, _ = scan_inputs(rng, B, Lq, Lr, dev)
+            for term in (False, True):
+                ts = None
+                if term:  # stop at the forward best: the begin-pass regime
+                    ts = plain(Q, rv, R, cv, mat, 5, 2, False, None)[0]
+                got = kernel(Q, rv, R, cv, mat, 5, 2, term, ts)
+                torch.cuda.synchronize()
+                want = plain(Q, rv, R, cv, mat, 5, 2, term, ts)
+                equal_or_raise(f"{name} {B}x{Lq}x{Lr} terminate={term}",
+                               got, want)
+                log(f"parity {name} {B}x{Lq}x{Lr} terminate={term}: "
+                    "bit-exact")
+    fused = (("sw_fused", K.sw_fused, K.sw_fused_plain,
+              ((4096, 256, 256), (64, 2048, 2048))),
+             ("sw_fused2", K.sw_fused2, K.sw_fused2_plain,
+              ((4096, 256, 256), (300, 256, 256), (64, 2048, 2048))))
+    for name, kernel, plain, shapes in fused:
+        for (B, lq, lr) in shapes:
+            buf = torch.from_numpy(fused_block(rng, B, lq, lr)).to(dev)
+            got = kernel(buf, mat, B, lq, lr, 5, 2)
             torch.cuda.synchronize()
-            want = K.sw_scan_plain(Q, rv, R, cv, mat, 5, 2, term, ts)
-            equal_or_raise(f"sw_scan {B}x{Lq}x{Lr} terminate={term}",
-                           got, want)
-            log(f"parity sw_scan {B}x{Lq}x{Lr} terminate={term}: "
-                "bit-exact")
-    for (B, lq, lr) in ((4096, 256, 256), (64, 2048, 2048)):
-        buf = torch.from_numpy(fused_block(rng, B, lq, lr)).to(dev)
-        got = K.sw_fused(buf, mat, B, lq, lr, 5, 2)
-        torch.cuda.synchronize()
-        want = K.sw_fused_plain(buf, mat, B, lq, lr, 5, 2)
-        equal_or_raise(f"sw_fused {B}x{lq}x{lr}", got, want)
-        n_pass = int((got[1] >= 0).sum())
-        log(f"parity sw_fused {B}x{lq}x{lr}: bit-exact "
-            f"({n_pass}/{B} pairs pass to the begin pass)")
+            want = plain(buf, mat, B, lq, lr, 5, 2)
+            equal_or_raise(f"{name} {B}x{lq}x{lr}", got, want)
+            n_pass = int((got[1] >= 0).sum())
+            log(f"parity {name} {B}x{lq}x{lr}: bit-exact "
+                f"({n_pass}/{B} pairs pass to the begin pass)")
 
 
 def phase_timing(mat):
@@ -215,12 +258,15 @@ def phase_timing(mat):
     B, lq, lr = 4096, 256, 256
     res = {}
 
-    # sw_fused at the main path's block shape
+    def bound(cells, nbytes):
+        ops_ms = cells * OPS_PER_CELL / int32_rate * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(ops_ms, bytes_ms),
+                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+    # the fused kernels at the main path's block shape, on one block
     buf = torch.from_numpy(fused_block(rng, B, lq, lr, False)).to(dev)
     out = K.sw_fused(buf, mat, B, lq, lr, 5, 2)
-    ms = cuda_ms(lambda: K.sw_fused(buf, mat, B, lq, lr, 5, 2), 20)
-    plain_ms = cuda_ms(lambda: K.sw_fused_plain(buf, mat, B, lq, lr, 5, 2),
-                       2, warmup=1)
     o = out.cpu().numpy().astype(np.int64)
     ints = buf[:, lq // 2 + lr // 2:].cpu().numpy().view("<i4")
     ql = ints[:, 0].clip(0, lq).astype(np.int64)
@@ -231,26 +277,142 @@ def phase_timing(mat):
     cells = int((ql * rl).sum()
                 + ((o[4][ok] + 1) * (o[2][ok] - o[1][ok] + 1)).sum())
     nbytes = buf.numel() + out.numel() * 4
-    res["sw_fused"] = dict(ms=ms, plain_ms=plain_ms, cells=cells,
-                           bound_ms=max(cells * OPS_PER_CELL / int32_rate,
-                                        nbytes / HBM_BYTES_PER_S) * 1e3,
-                           bound_by="operations")
+    for name, kernel, plain in (("sw_fused", K.sw_fused, K.sw_fused_plain),
+                                ("sw_fused2", K.sw_fused2,
+                                 K.sw_fused2_plain)):
+        ms = cuda_ms(lambda: kernel(buf, mat, B, lq, lr, 5, 2), 20)
+        plain_ms = cuda_ms(lambda: plain(buf, mat, B, lq, lr, 5, 2), 2,
+                           warmup=1)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, cells=cells,
+                         **bound(cells, nbytes))
 
-    # sw_scan (forward, no terminate) at the same tile shape
+    # the scans (forward, no terminate) at the same tile shape
     Q, rv, R, cv, qlen, rlen = scan_inputs(rng, B, lq, lr, dev)
-    ms = cuda_ms(lambda: K.sw_scan(Q, rv, R, cv, mat, 5, 2, False), 20)
-    plain_ms = cuda_ms(lambda: K.sw_scan_plain(Q, rv, R, cv, mat, 5, 2,
-                                               False, None), 2, warmup=1)
     cells = int((qlen.astype(np.int64) * rlen).sum())
     nbytes = (Q.numel() + R.numel()) * 4 + rv.numel() + cv.numel() + 3 * B * 4
-    res["sw_scan"] = dict(ms=ms, plain_ms=plain_ms, cells=cells,
-                          bound_ms=max(cells * OPS_PER_CELL / int32_rate,
-                                       nbytes / HBM_BYTES_PER_S) * 1e3,
-                          bound_by="operations")
+    for name, kernel, plain in (("sw_scan", K.sw_scan, K.sw_scan_plain),
+                                ("sw_scan2", K.sw_scan2, K.sw_scan2_plain)):
+        ms = cuda_ms(lambda: kernel(Q, rv, R, cv, mat, 5, 2, False), 20)
+        plain_ms = cuda_ms(lambda: plain(Q, rv, R, cv, mat, 5, 2, False,
+                                         None), 2, warmup=1)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, cells=cells,
+                         **bound(cells, nbytes))
     for k, v in res.items():
         log(f"timing {k} {B}x{lq}x{lr}: {v['ms']:.4f} ms (plain "
             f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms over "
             f"{v['cells']} cells at {int32_rate / 1e12:.2f} int32 Top/s)")
+    return res
+
+
+def load_part(db):
+    """The workload's index part 0 as the CLI loads it (built by the
+    cpu-vs-gpu phase)."""
+    from sortmerna_tpu_torch import cli
+    from sortmerna_tpu_torch.index.artifact import build_or_load
+    top = os.path.dirname(db)
+    opts = cli.parse_args(["-ref", db, "-reads", db, "-idx-dir",
+                           os.path.join(top, "idx"),
+                           "-workdir", os.path.join(top, "wd_probe_load")])
+    return build_or_load(db, opts.idx_dir, opts.interval, opts.max_pos,
+                         opts.max_file_size,
+                         seed_win_len=opts.seed_win_len).parts[0]
+
+
+def read_windows(reads, L, n, seed):
+    """``n`` windows of L nt cut from the reads (starts every L/2 nt), a
+    quarter of them with 1-2 point edits, as packed (L/2)-mer halves."""
+    import numpy as np
+    pw = L // 2
+    code = np.zeros(256, np.int64)
+    code[list(b"ACGT")] = [0, 1, 2, 3]
+    wins = []
+    with open(reads, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                continue
+            e = code[np.frombuffer(line.strip(), np.uint8)]
+            wins += [e[st:st + L] for st in range(0, len(e) - L + 1, pw)]
+            if len(wins) >= n:
+                break
+    w = np.stack(wins[:n])
+    rng = np.random.default_rng(seed)
+    for _ in range(2):
+        rows = np.flatnonzero(rng.random(n) < 0.125)
+        w[rows, rng.integers(0, L, len(rows))] = rng.integers(0, 4, len(rows))
+    weights = 4 ** np.arange(pw - 1, -1, -1)
+    return w[:, :pw] @ weights, w[:, pw:] @ weights
+
+
+def phase_probe(db, reads):
+    """seed_probe / seed_compact against their plain versions on one full
+    batch of windows, then timed, with the bytes their work needs."""
+    import torch
+    from sortmerna_tpu_torch.ops import seed_search as S
+    dev = torch.device("cuda")
+    part = load_part(db)
+    L = getattr(part, "seed_win_len", 18)
+    pw = L // 2
+    w1n, w2n = read_windows(reads, L, N_WINDOWS, seed=11)
+    w1 = torch.from_numpy(w1n).to(dev, torch.int32)
+    w2 = torch.from_numpy(w2n).to(dev, torch.int32)
+    for full_search in (False, True):
+        searcher = S.DeviceSeedSearcher(part, 0, full_search, device=dev)
+        tabs = searcher.tabs
+        count, ids = S.seed_probe(tabs, w1, w2, pw, full_search, 0)
+        win, got = S.seed_compact(count, ids, pw)
+        torch.cuda.synchronize()
+        want = S.probe_windows_plain(tabs, w1.long(), w2.long(), pw,
+                                     full_search, 0)
+        # seed_probe's counts and ids, read through the plain compaction
+        equal_or_raise(f"seed_probe full_search={full_search}",
+                       S.seed_compact_plain(count, ids), want)
+        equal_or_raise(f"seed_compact full_search={full_search}",
+                       (win, got), want)
+        log(f"parity seed_probe/seed_compact {N_WINDOWS} windows "
+            f"(L={L}) full_search={full_search}: bit-exact, "
+            f"{len(want[0])} (window, id) pairs, "
+            f"{int((count > 0).sum())} windows with a hit")
+
+    # timing, default search (full_search off, minoccur 0)
+    searcher = S.DeviceSeedSearcher(part, 0, False, device=dev)
+    tabs = searcher.tabs
+    count, ids = S.seed_probe(tabs, w1, w2, pw, False, 0)
+    ends = torch.cumsum(count, 0)
+    pairs = int(ends[-1])
+    win = torch.empty(pairs, dtype=torch.int32, device=dev)
+    out = torch.empty(pairs, dtype=torch.int32, device=dev)
+    # the lookups these windows need: the two 0-error keys, and in the
+    # other mode (no 0-error hit behind an open gate) the 4pw other
+    # substitutions, pw deletions and 4pw insertions of each subsearch
+    # whose gate (kmer_counts > minoccur) is open
+    key0 = (w1.long() << (2 * pw)) | w2.long()
+    zf = S._probe_table(tabs["fx_keys"], tabs["fx_val"], key0)[0]
+    rzf = S._probe_table(tabs["rx_keys"], tabs["rx_val"], key0)[0]
+    gate_f = tabs["kmer_counts"][w1.long()] > 0
+    gate_r = tabs["kmer_counts"][w2.long()] > 0
+    other = ~((zf & gate_f) | (rzf & gate_r))
+    lookups = 2 * N_WINDOWS + 9 * pw * int(
+        (other & gate_f).sum() + (other & gate_r).sum())
+    res = {}
+    nbytes = 8 * N_WINDOWS + SECTOR * lookups + 4 * N_WINDOWS + 4 * pairs
+    res["seed_probe"] = dict(
+        ms=cuda_ms(lambda: S.seed_probe(tabs, w1, w2, pw, False, 0), 20),
+        plain_ms=cuda_ms(lambda: S.probe_windows_plain(
+            tabs, w1.long(), w2.long(), pw, False, 0), 2, warmup=1),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        lookups=lookups, pairs=pairs, windows=N_WINDOWS)
+    nbytes = 4 * N_WINDOWS + 8 * N_WINDOWS + 4 * pairs + 8 * pairs
+    res["seed_compact"] = dict(
+        ms=cuda_ms(lambda: S.compact_into(count, ends, ids, pw, win, out),
+                   50),
+        plain_ms=cuda_ms(lambda: S.seed_compact_plain(count, ids), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        pairs=pairs, windows=N_WINDOWS)
+    for k, v in res.items():
+        log(f"timing {k} {N_WINDOWS} windows: {v['ms']:.4f} ms (plain "
+            f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms; "
+            f"{pairs} pairs"
+            + (f", {lookups} lookups)" if k == "seed_probe" else ")"))
     return res
 
 
@@ -282,55 +444,84 @@ def head_reads(src, dst, n):
             g.write(line)
 
 
-def phase_cpu_vs_gpu(top, db, reads):
+def cli_argv(top, db, reads, wd, extra=()):
     from sortmerna_tpu_torch import testing as T
-    from sortmerna_tpu_torch.ops import sw_kernels as K
+    return (["-ref", db, "-reads", reads] + T.VERIFY_FLAGS + list(extra)
+            + ["-idx-dir", os.path.join(top, "idx"), "-workdir", wd])
+
+
+def same_reports(what, a_dir, b_dir):
+    """Raise unless the two runs' reports are byte-identical; returns the
+    aligned.fa record count."""
+    from sortmerna_tpu_torch import testing as T
+    a = T.read_outputs(os.path.join(a_dir, "out"))
+    b = T.read_outputs(os.path.join(b_dir, "out"))
+    if a != b or len(a) < 7:
+        bad = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        raise AssertionError(f"{what}: reports differ: {bad} "
+                             f"({len(a)} and {len(b)} reports)")
+    return a["aligned.fa"].count(b">")
+
+
+def phase_cpu_vs_gpu(top, db, reads, extra=(), tag="cpu-vs-gpu",
+                     path_kernels=("sw_fused",)):
+    """The first 2,000 reads on cpu and on cuda: byte-identical reports;
+    on cuda every kernel of ``path_kernels`` launched, on cpu none."""
     sub = os.path.join(top, "reads2k.fasta")
     head_reads(reads, sub, 2000)
-    outs = {}
+    wds = {}
     for dev in ("cpu", "cuda"):
-        wd = os.path.join(top, f"wd2k_{dev}")
+        wds[dev] = os.path.join(top, f"wd2k_{tag}_{dev}")
         t = time.perf_counter()
-        K.reset_launches()
-        run_cli(["-ref", db, "-reads", sub] + T.VERIFY_FLAGS
-                + ["-idx-dir", os.path.join(top, "idx"), "-workdir", wd],
-                dev)
-        log(f"cpu-vs-gpu: 2000 reads on {dev} in "
-            f"{time.perf_counter() - t:.1f}s, launches {dict(K.LAUNCHES)}")
-        outs[dev] = T.read_outputs(os.path.join(wd, "out"))
-    if outs["cpu"] != outs["cuda"]:
-        bad = [k for k in outs["cpu"] if outs["cpu"][k] != outs["cuda"].get(k)]
-        raise AssertionError(f"cpu and cuda reports differ: {bad}")
-    n_al = outs["cuda"]["aligned.fa"].count(b">")
-    log(f"cpu-vs-gpu: {len(outs['cpu'])} reports byte-identical "
-        f"({n_al} aligned reads in aligned.fa)")
+        reset_launches()
+        run_cli(cli_argv(top, db, sub, wds[dev], extra), dev)
+        got = launches()
+        log(f"{tag}: 2000 reads on {dev} in "
+            f"{time.perf_counter() - t:.1f}s, launches {got}")
+        ran = all(got[k] > 0 for k in path_kernels) if dev == "cuda" \
+            else not any(got.values())
+        if not ran:
+            raise AssertionError(f"{tag}: launches on {dev}: {got}")
+    n_al = same_reports(tag, wds["cpu"], wds["cuda"])
+    log(f"{tag}: reports byte-identical ({n_al} aligned reads in "
+        "aligned.fa)")
+    return wds["cuda"]
 
 
-def phase_align(top, db, reads, n_reads):
+def phase_align(top, db, reads, n_reads, tag, extra=(), env=None,
+                path_kernels=("sw_fused",), idle_kernels=(),
+                same_as=None):
+    """The align task on ``cuda`` with the stage timers on; every kernel
+    of ``path_kernels`` must launch and none of ``idle_kernels``.  Device
+    time: a pair of CUDA events around each launch of the path's kernels
+    (the H2D copy is queued before the first, the D2H after the second,
+    so each pair spans the kernel alone)."""
+    import glob
     import torch
     from sortmerna_tpu_torch import native, util
-    import glob
-    from sortmerna_tpu_torch import testing as T
-    from sortmerna_tpu_torch.ops import sw_kernels as K
-    from sortmerna_tpu_torch.ops import sw_torch
-    wd = os.path.join(top, "wd_full")
-    # device time of the path: a pair of CUDA events around each sw_fused
-    # launch (the H2D copy is queued before the first, the D2H after the
-    # second, so each pair spans the kernel alone)
+    from sortmerna_tpu_torch.engine import run as run_mod
+    from sortmerna_tpu_torch.ops import seed_search, sw_torch
+    wd = os.path.join(top, f"wd_{tag}")
     events = []
-    launch = sw_torch.sw_fused
+    # the launching functions, as their callers look them up
+    hooks = {"sw_fused": (sw_torch, "sw_fused"),
+             "sw_fused2": (sw_torch, "sw_fused2"),
+             "seed_probe": (seed_search, "seed_probe"),
+             "seed_compact": (seed_search, "compact_into")}
+    saved = {}
 
-    def evented(*a, **kw):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = launch(*a, **kw)
-        ev[1].record()
-        events.append(ev)
-        return out
+    def evented(fn):
+        def inner(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+        return inner
 
     # host clock around the task's phases as run_all calls them
-    from sortmerna_tpu_torch.engine import run as run_mod
     phase_s = {}
     phases = {n: getattr(run_mod, n) for n in
               ("prepare", "run_align", "run_postprocess", "run_reports")}
@@ -345,35 +536,51 @@ def phase_align(top, db, reads, n_reads):
                     + time.perf_counter() - t0
         return inner
 
-    sw_torch.sw_fused = evented
+    for k in path_kernels:
+        mod, name = hooks[k]
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, evented(saved[(mod, name)]))
     for n, fn in phases.items():
         setattr(run_mod, n, clocked(n, fn))
+    env = env or {}
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     util.TIMERS.clear()
-    K.reset_launches()
+    reset_launches()
     t = time.perf_counter()
     try:
-        run_cli(["-ref", db, "-reads", reads] + T.VERIFY_FLAGS
-                + ["-idx-dir", os.path.join(top, "idx"), "-workdir", wd],
-                "cuda")
+        run_cli(cli_argv(top, db, reads, wd, extra), "cuda")
     finally:
-        sw_torch.sw_fused = launch
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
         for n, fn in phases.items():
             setattr(run_mod, n, fn)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     secs = time.perf_counter() - t
     phase_s["other"] = secs - sum(phase_s.values())
-    launches = dict(K.LAUNCHES)
+    got = launches()
     torch.cuda.synchronize()
     kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
     stages = sorted(((k, v[0], v[1]) for k, v in util.TIMERS.items()),
                     key=lambda r: -r[1])
-    with open(os.path.join(OUT_DIR, "align_stages.txt"), "w") as f:
-        f.write(f"wall {secs:.3f}s; sw_fused kernel time {kernel_s:.3f}s "
-                f"over {len(events)} launches\nrun_all phases: "
+    with open(os.path.join(OUT_DIR, f"align_stages_{tag}.txt"), "w") as f:
+        f.write(f"wall {secs:.3f}s; kernel time ({', '.join(path_kernels)}) "
+                f"{kernel_s:.3f}s over {len(events)} launches\n"
+                "run_all phases: "
                 + ", ".join(f"{k} {v:.3f}s" for k, v in phase_s.items())
                 + "\nstage timers (util.timed, nested):\n")
         f.writelines(f"{k:32s} {s:9.3f}s x{n}\n" for k, s, n in stages)
-    if launches["sw_fused"] <= 0:
-        raise AssertionError("the align task launched no sw_fused kernel")
+    for k in path_kernels:
+        if got[k] <= 0:
+            raise AssertionError(f"{tag}: the run launched no {k} kernel: "
+                                 f"{got}")
+    for k in idle_kernels:
+        if got[k] != 0:
+            raise AssertionError(f"{tag}: the run launched {k}: {got}")
     if not native.have_native():
         raise AssertionError("the native host library is not loaded")
     log_txt = open(os.path.join(wd, "out", "aligned.log")).read()
@@ -386,19 +593,23 @@ def phase_align(top, db, reads, n_reads):
         os.path.join(top, "idx", "gumbel_*.json"))})
     if providers != ["alp"]:
         raise AssertionError(f"Gumbel parameters from {providers}, not alp")
-    log(f"align: {n_reads} reads, {aligned} aligned (Gumbel provider alp), "
-        f"{secs:.2f}s, {n_reads / secs:.1f} reads/s, launches {launches}")
-    log(f"align: sw_fused kernels busy {kernel_s:.3f}s of {secs:.2f}s "
-        f"({100 * kernel_s / secs:.2f}%); phases "
+    if same_as is not None:
+        same_reports(f"{tag} against {os.path.basename(same_as)}", wd,
+                     same_as)
+    log(f"{tag}: {n_reads} reads, {aligned} aligned (Gumbel provider "
+        f"alp), {secs:.2f}s, {n_reads / secs:.1f} reads/s, launches {got}"
+        + (f"; reports byte-identical to {os.path.basename(same_as)}'s"
+           if same_as else ""))
+    log(f"{tag}: kernels ({', '.join(path_kernels)}) busy {kernel_s:.3f}s "
+        f"of {secs:.2f}s ({100 * kernel_s / secs:.2f}%); phases "
         + ", ".join(f"{k} {v:.2f}s" for k, v in phase_s.items())
         + "; host stages "
         + ", ".join(f"{k} {s:.2f}s" for k, s, _ in stages[:6])
-        + " (all in chiprun_out/chip_smoke/align_stages.txt)")
-    return dict(reads=n_reads, aligned=aligned, gumbel_provider="alp",
-                seconds=secs,
-                reads_per_s=n_reads / secs, launches=launches,
-                kernel_seconds=kernel_s, phases=phase_s,
-                stages={k: [s, n] for k, s, n in stages})
+        + f" (all in chiprun_out/chip_smoke/align_stages_{tag}.txt)")
+    return wd, dict(reads=n_reads, aligned=aligned, gumbel_provider="alp",
+                    seconds=secs, reads_per_s=n_reads / secs, launches=got,
+                    kernel_seconds=kernel_s, phases=phase_s,
+                    stages={k: [s, n] for k, s, n in stages})
 
 
 _HOST_PATH_CHILD = r"""
@@ -415,30 +626,48 @@ print("LAUNCHES " + json.dumps(K.LAUNCHES))
 
 
 def phase_host_path(top, db, reads):
-    from sortmerna_tpu_torch import testing as T
     sub = os.path.join(top, "reads200.fasta")
     head_reads(reads, sub, 200)
     env = dict(os.environ, SMR_NO_NATIVE="1", SMR_TORCH_DEVICE="cuda")
-    wd = os.path.join(top, "wd_host")
+    env.pop("SMR_PALLAS", None)
     t = time.perf_counter()
     p = subprocess.run(
-        [sys.executable, "-c", _HOST_PATH_CHILD, REPO, "-ref", db,
-         "-reads", sub] + T.VERIFY_FLAGS
-        + ["-idx-dir", os.path.join(top, "idx"), "-workdir", wd],
+        [sys.executable, "-c", _HOST_PATH_CHILD, REPO]
+        + cli_argv(top, db, sub, os.path.join(top, "wd_host")),
         env=env, capture_output=True, text=True, timeout=600)
     if p.returncode != 0:
         raise RuntimeError("host-path child failed:\n" + p.stderr[-3000:])
     line = [ln for ln in p.stdout.splitlines()
             if ln.startswith("LAUNCHES ")][-1]
-    launches = json.loads(line[len("LAUNCHES "):])
-    if launches["sw_scan"] <= 0:
+    got = json.loads(line[len("LAUNCHES "):])
+    if got["sw_scan"] <= 0:
         raise AssertionError("the host path launched no sw_scan kernel")
     log(f"host-path: 200 reads in {time.perf_counter() - t:.1f}s, "
-        f"launches {launches}")
-    return launches
+        f"launches {got}")
+    return got
 
 
 # ------------------------------------------------------------------ main
+
+
+REPLACES = {
+    "sw_fused": "sortmerna_tpu/ops/sw_pallas.py:54 (_scan_kernel, both "
+                "passes of ops/sw_jax.py:233 sw_fused_call)",
+    "sw_scan": "sortmerna_tpu/ops/sw_pallas.py:54 (_scan_kernel)",
+    "sw_scan2": "sortmerna_tpu/ops/sw_pallas.py:186 (_scan_kernel2, "
+                "wrapper sw_scan_pallas2 :306)",
+    "sw_fused2": "sortmerna_tpu/ops/sw_pallas.py:186 (_scan_kernel2, both "
+                 "passes of ops/sw_jax.py:233 sw_fused_call with "
+                 "SMR_PALLAS=2)",
+    "seed_probe": "sortmerna_tpu/ops/seed_search.py:204 (_probe_kernel: "
+                  "probes, 0-error modes, expansions, per-window sort and "
+                  "unique)",
+    "seed_compact": "sortmerna_tpu/ops/seed_search.py:331 (_probe_kernel's "
+                    "flat compaction)",
+}
+SOURCES = {"sw_fused": "sw_scan.cu", "sw_scan": "sw_scan.cu",
+           "sw_scan2": "sw_scan2.cu", "sw_fused2": "sw_scan2.cu",
+           "seed_probe": "seed_probe.cu", "seed_compact": "seed_probe.cu"}
 
 
 def main() -> int:
@@ -454,48 +683,74 @@ def main() -> int:
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
     os.environ["SMR_TIMERS"] = "1"    # the port's stage timers (util.timed)
+    for k in ("SMR_PALLAS", "SMR_DEVICE_PROBE"):
+        os.environ.pop(k, None)       # the default path unless a phase asks
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     from sortmerna_tpu_torch.constants import scoring_matrix_5x5
-    from sortmerna_tpu_torch.ops import sw_kernels as K
     mat = torch.as_tensor(scoring_matrix_5x5(2, -3, 0).astype("int32")) \
         .cuda().contiguous()
 
     phase_build()
+    # the parity and timing phases are sw_scan2's only launches: no path
+    # of the align task calls it (as sw_scan_pallas2 has no caller outside
+    # sw_fused_call in the JAX package)
+    reset_launches()
     phase_parity(mat)
     timing = phase_timing(mat)
+    path_launches = {"sw_scan2": launches()["sw_scan2"]}
 
     with tempfile.TemporaryDirectory(prefix="smr_chip_",
                                      dir=OUT_DIR) as top:
         db, reads = make_workload(top, N_READS)
         phase_cpu_vs_gpu(top, db, reads)
-        results = phase_align(top, db, reads, N_READS)
-        path_launches = {
-            "sw_fused": results["launches"]["sw_fused"],
-            "sw_scan": phase_host_path(top, db, reads)["sw_scan"]}
+        timing.update(phase_probe(db, reads))
+        wd_full, results = phase_align(top, db, reads, N_READS, "align")
+        path_launches["sw_fused"] = results["launches"]["sw_fused"]
+        _, v2 = phase_align(
+            top, db, reads, N_READS, "pallas2-align",
+            env={"SMR_PALLAS": "2"}, path_kernels=("sw_fused2",),
+            idle_kernels=("sw_fused",), same_as=wd_full)
+        path_launches["sw_fused2"] = v2["launches"]["sw_fused2"]
+        phase_cpu_vs_gpu(top, db, reads, extra=["-device_probe"],
+                         tag="device-probe",
+                         path_kernels=("sw_fused", "seed_probe",
+                                       "seed_compact"))
+        _, probe = phase_align(
+            top, db, reads, N_READS, "device-probe-align",
+            extra=["-device_probe"],
+            path_kernels=("sw_fused", "seed_probe", "seed_compact"),
+            same_as=wd_full)
+        for k in ("seed_probe", "seed_compact"):
+            path_launches[k] = probe["launches"][k]
+        path_launches["sw_scan"] = phase_host_path(top, db, reads)["sw_scan"]
 
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump(dict(card=card, timing=timing, align=results,
+                       pallas2_align=v2, device_probe_align=probe,
                        path_launches=path_launches), f, indent=1)
-    replaces = {
-        "sw_fused": "sortmerna_tpu/ops/sw_pallas.py:54 (_scan_kernel, "
-                    "both passes of ops/sw_jax.py:233 sw_fused_call)",
-        "sw_scan": "sortmerna_tpu/ops/sw_pallas.py:54 (_scan_kernel)",
-    }
     kernels = []
-    for name in ("sw_fused", "sw_scan"):
+    for name in ("sw_fused", "sw_scan", "sw_scan2", "sw_fused2",
+                 "seed_probe", "seed_compact"):
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "sortmerna_tpu_torch/csrc/sw_scan.cu",
-            "replaces": replaces[name],
+            "source": "sortmerna_tpu_torch/csrc/" + SOURCES[name],
+            "replaces": REPLACES[name],
             "launches": path_launches[name],
+            "launches_in": {"sw_fused": "align", "sw_scan": "host-path",
+                            "sw_scan2": "parity and timing (no path "
+                                        "calls it)",
+                            "sw_fused2": "pallas2-align",
+                            "seed_probe": "device-probe-align",
+                            "seed_compact": "device-probe-align"}[name],
             "max_abs_err": MAX_ABS_ERR.get(name),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,    # no single PyTorch call computes SW
+            # no single PyTorch call computes SW or the window search
+            "library_ms": None,
         })
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(card_line())

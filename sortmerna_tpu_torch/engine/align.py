@@ -108,13 +108,28 @@ def run_candidate_waves(gens: List[Tuple[int, object]], backend
     return search_flags
 
 
-def _make_searcher(part, opts: Opts):
-    """SeedSearcher for this part.  The device prober (--device_probe /
-    SMR_DEVICE_PROBE) is not ported yet and raises."""
+def _make_searcher(part, opts: Opts, device=None):
+    """SeedSearcher for this part; the device prober when requested
+    (--device_probe / SMR_DEVICE_PROBE) on ``device`` (the SW backend's),
+    cached on the part so its tables go to the device once per part and
+    are reused across strands and batches.  A part whose group sizes
+    exceed the prober's caps takes the host prober, with a warning; any
+    other failure of the device prober raises."""
     if getattr(opts, "device_probe", False):
-        raise NotImplementedError(
-            "--device_probe (the device d<=1 seed probe, "
-            "ops/seed_search.py) is not ported to sortmerna_tpu_torch yet")
+        from ..ops.seed_search import DeviceSeedSearcher, ProbeCapsExceeded
+        key = (opts.minoccur, opts.is_full_search, str(device))
+        cached = getattr(part, "_dev_searcher", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        try:
+            s = DeviceSeedSearcher(part, opts.minoccur, opts.is_full_search,
+                                   device=device)
+        except ProbeCapsExceeded as e:
+            from ..util import WARN
+            WARN(f"device probe unavailable ({e}); using host prober")
+        else:
+            part._dev_searcher = (key, s)
+            return s
     return SeedSearcher(part, opts.minoccur, opts.is_full_search,
                         threads=opts.threads)
 
@@ -811,7 +826,7 @@ def align_part(
     # fully-native part driver: the whole pass/strand loop runs in C++
     # (native/driver.cpp); python only pumps device SW waves.  The
     # device-probe configuration keeps the python traverse (its prober
-    # is a device function, not ported yet).
+    # is a device function: ops/seed_search.py).
     if (native_ok and ctx.ref_seqs and batch.n
             and not getattr(opts, "device_probe", False)
             and 8 <= getattr(part, "seed_win_len", 18) <= 26):
@@ -835,7 +850,7 @@ def align_part(
                     drv.close()
         return
 
-    searcher = _make_searcher(part, opts)
+    searcher = _make_searcher(part, opts, getattr(backend, "device", None))
     for count in range(num_strands):
         forward = not ((single and opts.is_reverse) or count == 1)
         is_last = single or count == 1

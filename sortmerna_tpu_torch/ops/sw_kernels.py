@@ -1,15 +1,25 @@
 """The SW column-scan kernels: wrappers, plain PyTorch versions, build.
 
-Two entries share one hand-written CUDA routine (csrc/sw_scan.cu):
+Two hand-written CUDA routines, each with two entries:
 
-* ``sw_scan`` -- the column scan over padded tiles with explicit row and
-  column masks, ``(Q, row_valid, R, col_valid, mat, go, ge, terminate,
-  tscore) -> (best, end_ref, end_read)``.  It replaces the JAX package's
-  Pallas kernel ``sortmerna_tpu/ops/sw_pallas.py::_scan_kernel`` and its
-  XLA twin ``ops/sw_jax.py::_sw_scan``.
-* ``sw_fused`` -- one SW wave block in one launch: uint8
-  ``[B, lq/2+lr/2+12]`` -> int32 ``[5, B]`` (score, beg_ref, end_ref,
-  beg_read, end_read); the counterpart of ``ops/sw_jax.py::sw_fused_call``.
+* csrc/sw_scan.cu (warp per pair), the port of the JAX package's Pallas
+  kernel ``sortmerna_tpu/ops/sw_pallas.py::_scan_kernel``:
+
+  - ``sw_scan`` -- the column scan over padded tiles with explicit row and
+    column masks, ``(Q, row_valid, R, col_valid, mat, go, ge, terminate,
+    tscore) -> (best, end_ref, end_read)``; it also stands for the XLA
+    twin ``ops/sw_jax.py::_sw_scan``;
+  - ``sw_fused`` -- one SW wave block in one launch: uint8
+    ``[B, lq/2+lr/2+12]`` -> int32 ``[5, B]`` (score, beg_ref, end_ref,
+    beg_read, end_read); the counterpart of ``ops/sw_jax.py::sw_fused_call``.
+
+* csrc/sw_scan2.cu (thread per pair, 512 pairs a block), the port of the
+  batch-major Pallas kernel ``_scan_kernel2`` (``SMR_PALLAS=2``):
+
+  - ``sw_scan2`` -- the ``sw_scan_pallas2`` contract; ``B`` must be a
+    multiple of 512, as there;
+  - ``sw_fused2`` -- the ``sw_fused`` contract with v2 dispatched inside
+    ``sw_fused_call``; it takes any ``B``.
 
 Semantics (ssw.c tie-breaking): for each ref column ``sub`` is the
 substitution score (NEG where the row or the column is invalid),
@@ -19,13 +29,15 @@ inclusive prefix max of ``Hpre-go+row*ge`` shifted down one row, minus
 ``(row-1)*ge``), ``H = max(Hpre, F)`` masked by the row mask.  The best
 score updates on a strict ``>`` in valid, not-done columns (earliest
 column wins), at the smallest row of the column max; in terminate mode a
-pair is done once its column max equals ``tscore``.
+pair is done once its column max equals ``tscore``.  v2 reads its columns
+differently on odd inputs (see ``_v2_columns``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises -- it never falls back.  Each launch adds
-one to ``LAUNCHES[name]``.  The kernels build with ``nvcc`` for
-``sm_90a`` at first use into ``build/torch_kernels/libsmr_sw.so`` and are
-bound with ctypes (plain C interface).
+one to ``LAUNCHES[name]``.  ``build()`` compiles every ``csrc/*.cu`` with
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<stem>.so`` (one
+nvcc per source, run in parallel); ``load_library`` loads one at first
+use and binds it with ctypes (plain C interface).
 """
 
 from __future__ import annotations
@@ -36,24 +48,41 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Tuple
 
 import torch
 
 NEG = -(1 << 30)
+NEG2 = -(1 << 29)          # the v2 kernel's NEG (sortmerna_tpu/ops/sw_pallas.py)
+SUB_B = 512                # pairs per grid step of the v2 kernel
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sw_scan.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-LIBRARY = BUILD_DIR / "libsmr_sw.so"
-# nvcc's output of the last build, with ptxas's register / spill report
-BUILD_LOG = BUILD_DIR / "libsmr_sw.log"
 
 # launches of each kernel since the last reset (plain-version calls on CPU
 # tensors do not count)
-LAUNCHES = {"sw_scan": 0, "sw_fused": 0}
-_LIB: Optional[ctypes.CDLL] = None
+LAUNCHES = {"sw_scan": 0, "sw_fused": 0, "sw_scan2": 0, "sw_fused2": 0}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SCAN_ARGS = [_VP] * 5 + [_CI] * 3 + [_VP] + [_CI] * 3 + [_VP] * 3
+_FUSED_ARGS = [_VP, _VP] + [_CI] * 5 + [_VP] * 3
+# the C entries of each library: name -> (restype, argtypes)
+SIGNATURES = {
+    "sw_scan": {
+        "smr_sw_scratch_ints": (ctypes.c_longlong, [_CI, _CI]),
+        "smr_sw_scan": (_CI, _SCAN_ARGS),
+        "smr_sw_fused": (_CI, _FUSED_ARGS),
+    },
+    "sw_scan2": {
+        "smr_sw2_scratch_ints": (ctypes.c_longlong, [_CI, _CI]),
+        "smr_sw_scan2": (_CI, _SCAN_ARGS),
+        "smr_sw_fused2": (_CI, _FUSED_ARGS),
+    },
+}
 
 
 def reset_launches() -> None:
@@ -76,46 +105,62 @@ def _nvcc() -> str:
             return c
     raise RuntimeError(
         "sortmerna_tpu_torch: nvcc not found (set NVCC or CUDA_HOME); the "
-        "SW kernels cannot be built for a CUDA device")
+        "kernels cannot be built for a CUDA device")
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile csrc/sw_scan.cu for sm_90a (if the library is missing or
+def library_path(stem: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{stem}.so"
+
+
+def build_log(stem: str) -> pathlib.Path:
+    """nvcc's output of the last build of ``csrc/<stem>.cu``, with ptxas's
+    register / spill report."""
+    return BUILD_DIR / f"lib{stem}.log"
+
+
+def build_one(stem: str, force: bool = False) -> pathlib.Path:
+    """Compile csrc/<stem>.cu for sm_90a (if the library is missing or
     older than its source) to a temp name, then rename it atomically."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
+    src, lib = CSRC / f"{stem}.cu", library_path(stem)
+    if (not force and lib.exists()
+            and lib.stat().st_mtime >= src.stat().st_mtime):
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(".so.%d" % os.getpid())
+    tmp = lib.with_suffix(".so.%d" % os.getpid())
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
+           "-Xptxas", "-v", "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError("sortmerna_tpu_torch: nvcc failed building "
-                           f"{SOURCE.name}:\n{proc.stderr[-4000:]}")
-    BUILD_LOG.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+                           f"{src.name}:\n{proc.stderr[-4000:]}")
+    build_log(stem).write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _LIB
+def build(force: bool = False) -> Dict[str, pathlib.Path]:
+    """Compile every csrc/*.cu, one nvcc per source, all at once."""
+    stems = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(stems)) as ex:
+        libs = list(ex.map(lambda s: build_one(s, force), stems))
+    return dict(zip(stems, libs))
+
+
+def load_library(stem: str, signatures=None) -> ctypes.CDLL:
+    """The kernel library of csrc/<stem>.cu, built on first use, with the
+    ctypes signatures of its C entries bound."""
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()), mode=ctypes.RTLD_LOCAL)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.smr_sw_scratch_ints.restype = ctypes.c_longlong
-            lib.smr_sw_scratch_ints.argtypes = [ci, ci]
-            lib.smr_sw_scan.restype = ci
-            lib.smr_sw_scan.argtypes = ([vp] * 5 + [ci] * 3 + [vp]
-                                        + [ci] * 3 + [vp] * 3)
-            lib.smr_sw_fused.restype = ci
-            lib.smr_sw_fused.argtypes = [vp, vp] + [ci] * 5 + [vp] * 3
-            _LIB = lib
-    return _LIB
+        lib = _LIBS.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_one(stem)), mode=ctypes.RTLD_LOCAL)
+            sigs = SIGNATURES[stem] if signatures is None else signatures
+            for name, (res, args) in sigs.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = res, args
+            _LIBS[stem] = lib
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +170,52 @@ def load() -> ctypes.CDLL:
 def sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
                   terminate, tscore):
     """Line-by-line twin of sortmerna_tpu/ops/sw_jax.py::_sw_scan."""
-    B, Lq = Q.shape
+    # the where-chain over ref chars: 0..3, anything else reads p4
+    rcode = torch.where((R >= 0) & (R < 4), R, 4)
+    return _column_scan(Q, row_valid, rcode, col_valid, mat, gap_open,
+                        gap_ext, terminate, tscore, NEG)
+
+
+def _v2_columns(R, col_valid):
+    """How _scan_kernel2 reads its ref columns (sw_pallas.py:206-218):
+    ``R_enc = where(col_valid, R, 7)``; column j comes out of its
+    128-column chunk by a masked max against 0, and a last chunk that
+    runs past Lr is read from Lr - 128 on (its dynamic slice is clamped);
+    the column is valid iff that char is < 5, and the select chain falls
+    through to profile 0.  Returns (char 0..4, valid)."""
     Lr = R.shape[1]
+    renc = torch.where(col_valid, R, 7)
+    if Lr >= 128:
+        j = torch.arange(Lr, device=R.device)
+        jc = j // 128 * 128
+        renc = renc[:, torch.clamp(jc, max=Lr - 128) + (j - jc)]
+    rj = renc.clamp(min=0)
+    valid = rj < 5
+    return torch.where(valid, rj, 0), valid
+
+
+def _scan2(Q, row_valid, R, col_valid, mat, gap_open, gap_ext, terminate,
+           tscore):
+    """v2's scan for any B (the per-pair function of sw_scan_pallas2)."""
+    rcode, cvalid = _v2_columns(R, col_valid)
+    return _column_scan(Q, row_valid, rcode, cvalid, mat, gap_open,
+                        gap_ext, terminate, tscore, NEG2)
+
+
+def sw_scan2_plain(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
+                   terminate, tscore):
+    """Twin of sortmerna_tpu/ops/sw_pallas.py::sw_scan_pallas2."""
+    if Q.shape[0] % SUB_B:
+        raise ValueError(f"B={Q.shape[0]} must be a multiple of {SUB_B}")
+    return _scan2(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
+                  terminate, tscore)
+
+
+def _column_scan(Q, row_valid, rcode, col_valid, mat, gap_open, gap_ext,
+                 terminate, tscore, neg):
+    """The column scan of both kernels, given each column's char (0..4
+    where valid) and validity; ``neg`` is the kernel's NEG."""
+    B, Lq = Q.shape
     dev = Q.device
     i32 = torch.int32
     rows = torch.arange(Lq, dtype=i32, device=dev)
@@ -134,11 +223,11 @@ def sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
 
     prof = mat.t()[Q.long().clamp(0, 4)]                  # [B, Lq, 5]
     prof = torch.where(row_valid[:, :, None], prof,
-                       torch.tensor(NEG, dtype=i32, device=dev))
-    # the where-chain over ref chars (0..3, anything else reads p4) as one
-    # gather per column: prof5[b, c] is pair b's profile row for char c
+                       torch.tensor(neg, dtype=i32, device=dev))
+    # the where-chain over ref chars as one gather per column: prof5[b, c]
+    # is pair b's profile row for char c
     prof5 = prof.permute(0, 2, 1).contiguous()            # [B, 5, Lq]
-    rcode = torch.where((R >= 0) & (R < 4), R, 4).long()
+    rcode = rcode.long()
     bidx = torch.arange(B, device=dev)
 
     s = max((Lq - 1).bit_length(), 1)
@@ -150,12 +239,12 @@ def sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
         tscore = torch.zeros(B, dtype=i32, device=dev)
     tscore = tscore.to(i32)
     zcol = torch.zeros((B, 1), dtype=i32, device=dev)
-    ncol = torch.full((B, 1), NEG, dtype=i32, device=dev)
+    ncol = torch.full((B, 1), neg, dtype=i32, device=dev)
 
     last_valid = (Lq - 1 - torch.argmax(
         torch.flip(row_valid, [1]).to(i32), dim=1).to(i32))
     Hprev = torch.zeros((B, Lq), dtype=i32, device=dev)
-    E = torch.full((B, Lq), NEG, dtype=i32, device=dev)
+    E = torch.full((B, Lq), neg, dtype=i32, device=dev)
     bestscore = torch.zeros(B, dtype=i32, device=dev)
     bestkey = (Lq - 1 - last_valid).to(i32)
     end_ref = torch.full((B,), -1, dtype=i32, device=dev)
@@ -171,7 +260,7 @@ def sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
     for j in range(j0, j1):
         cvj = CT[j]
         sub = prof5[bidx, rcode[:, j]]
-        sub = torch.where(cvj[:, None], sub, NEG)
+        sub = torch.where(cvj[:, None], sub, neg)
         diag = torch.cat([zcol, Hprev[:, :-1]], dim=1) + sub
         E = torch.maximum(E - gap_ext, Hprev - gap_open)
         Hpre = torch.clamp(torch.maximum(diag, E), min=0)
@@ -228,13 +317,24 @@ def sw_fused_plain(buf, mat, B: int, lq: int, lr: int, gap_open: int,
                    gap_ext: int):
     """Twin of sortmerna_tpu/ops/sw_jax.py::sw_fused_call: the begin pass
     runs on FLIPPED tiles with per-pair start masks."""
+    return _fused(buf, mat, lq, lr, gap_open, gap_ext, sw_scan_plain)
+
+
+def sw_fused2_plain(buf, mat, B: int, lq: int, lr: int, gap_open: int,
+                    gap_ext: int):
+    """Twin of sw_fused_call with SMR_PALLAS=2 (both passes through
+    sw_scan_pallas2's function), for any B."""
+    return _fused(buf, mat, lq, lr, gap_open, gap_ext, _scan2)
+
+
+def _fused(buf, mat, lq: int, lr: int, gap_open: int, gap_ext: int, scan):
     Q, R, q_len, r_len, minimal = _unpack_buf(buf, lq, lr)
     dev = buf.device
     posq = torch.arange(lq, dtype=torch.int32, device=dev)[None, :]
     posr = torch.arange(lr, dtype=torch.int32, device=dev)[None, :]
     row_valid = posq < q_len[:, None]
     col_valid = posr < r_len[:, None]
-    score, end_ref, end_read = sw_scan_plain(
+    score, end_ref, end_read = scan(
         Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
         terminate=False, tscore=None)
     end_read = torch.where(end_ref >= 0, end_read, q_len - 1)
@@ -245,7 +345,7 @@ def sw_fused_plain(buf, mat, B: int, lq: int, lr: int, gap_open: int,
     r_start = lr - 1 - end_ref
     row_valid2 = posq >= q_start[:, None]
     col_valid2 = posr >= r_start[:, None]
-    s2, jstar, istar = sw_scan_plain(
+    s2, jstar, istar = scan(
         Qf, row_valid2, Rf, col_valid2, mat, gap_open, gap_ext,
         terminate=True, tscore=score)
     ok = (score >= minimal) & (end_ref >= 0)
@@ -332,13 +432,20 @@ def _on_device(t, name) -> torch.device:
     if t.device.type == "cpu":
         return t.device
     if t.device.type != "cuda":
-        raise ValueError(f"{name} is on {t.device}; the SW kernels run on "
+        raise ValueError(f"{name} is on {t.device}; the kernels run on "
                          "cuda (or their plain versions on cpu)")
     return t.device
 
 
-def _scratch(lib, B: int, L: int, device):
-    n = int(lib.smr_sw_scratch_ints(B, L))
+# each kernel version's library and C entries: (stem, scratch, scan, fused)
+_ENTRIES = {1: ("sw_scan", "smr_sw_scratch_ints", "smr_sw_scan",
+                "smr_sw_fused"),
+            2: ("sw_scan2", "smr_sw2_scratch_ints", "smr_sw_scan2",
+                "smr_sw_fused2")}
+
+
+def _scratch(lib, fn: str, B: int, L: int, device):
+    n = int(getattr(lib, fn)(B, L))
     return torch.empty(n, dtype=torch.int32, device=device) if n else None
 
 
@@ -346,6 +453,54 @@ def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"sortmerna_tpu_torch: {name} launch failed "
                            f"(cudaError_t {err})")
+
+
+def _launch_scan(version: int, name: str, Q, row_valid, R, col_valid, mat,
+                 gap_open, gap_ext, terminate, tscore, device):
+    B, Lq = Q.shape
+    Lr = R.shape[1]
+    _check(Q, "Q", torch.int32, (B, Lq), device)
+    _check(row_valid, "row_valid", torch.bool, (B, Lq), device)
+    _check(R, "R", torch.int32, (B, Lr), device)
+    _check(col_valid, "col_valid", torch.bool, (B, Lr), device)
+    _check(mat, "mat", torch.int32, (5, 5), device)
+    if tscore is not None:
+        _check(tscore, "tscore", torch.int32, (B,), device)
+    stem, scratch_fn, scan_fn, _ = _ENTRIES[version]
+    lib = load_library(stem)
+    out = torch.empty((3, B), dtype=torch.int32, device=device)
+    scratch = _scratch(lib, scratch_fn, B, Lq, device)
+    err = getattr(lib, scan_fn)(
+        Q.data_ptr(), row_valid.view(torch.uint8).data_ptr(), R.data_ptr(),
+        col_valid.view(torch.uint8).data_ptr(), mat.data_ptr(),
+        int(gap_open), int(gap_ext), int(bool(terminate)),
+        tscore.data_ptr() if tscore is not None else None,
+        B, Lq, Lr, out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out[0], out[1], out[2]
+
+
+def _launch_fused(version: int, name: str, buf, mat, B, lq, lr, gap_open,
+                  gap_ext, device):
+    if lq % 2 or lr % 2:
+        raise ValueError(f"lq={lq}, lr={lr} must be even (packed nibbles)")
+    _check(buf, "buf", torch.uint8, (B, lq // 2 + lr // 2 + 12), device)
+    _check(mat, "mat", torch.int32, (5, 5), device)
+    stem, scratch_fn, _, fused_fn = _ENTRIES[version]
+    lib = load_library(stem)
+    out = torch.empty((5, B), dtype=torch.int32, device=device)
+    scratch = _scratch(lib, scratch_fn, B, lq, device)
+    err = getattr(lib, fused_fn)(
+        buf.data_ptr(), mat.data_ptr(), B, lq, lr, int(gap_open),
+        int(gap_ext), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def sw_scan(Q, row_valid, R, col_valid, mat, gap_open: int, gap_ext: int,
@@ -358,29 +513,23 @@ def sw_scan(Q, row_valid, R, col_valid, mat, gap_open: int, gap_ext: int,
     if device.type == "cpu":
         return sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open,
                              gap_ext, terminate, tscore)
-    B, Lq = Q.shape
-    Lr = R.shape[1]
-    _check(Q, "Q", torch.int32, (B, Lq), device)
-    _check(row_valid, "row_valid", torch.bool, (B, Lq), device)
-    _check(R, "R", torch.int32, (B, Lr), device)
-    _check(col_valid, "col_valid", torch.bool, (B, Lr), device)
-    _check(mat, "mat", torch.int32, (5, 5), device)
-    if tscore is not None:
-        _check(tscore, "tscore", torch.int32, (B,), device)
-    lib = load()
-    out = torch.empty((3, B), dtype=torch.int32, device=device)
-    scratch = _scratch(lib, B, Lq, device)
-    err = lib.smr_sw_scan(
-        Q.data_ptr(), row_valid.view(torch.uint8).data_ptr(), R.data_ptr(),
-        col_valid.view(torch.uint8).data_ptr(), mat.data_ptr(),
-        int(gap_open), int(gap_ext), int(bool(terminate)),
-        tscore.data_ptr() if tscore is not None else None,
-        B, Lq, Lr, out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "sw_scan")
-    LAUNCHES["sw_scan"] += 1
-    return out[0], out[1], out[2]
+    return _launch_scan(1, "sw_scan", Q, row_valid, R, col_valid, mat,
+                        gap_open, gap_ext, terminate, tscore, device)
+
+
+def sw_scan2(Q, row_valid, R, col_valid, mat, gap_open: int, gap_ext: int,
+             terminate: bool, tscore=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """sw_scan's contract through the batch-major v2 kernel (the function
+    of sw_scan_pallas2); B must be a multiple of 512, as there."""
+    device = _on_device(Q, "Q")
+    if device.type == "cpu":
+        return sw_scan2_plain(Q, row_valid, R, col_valid, mat, gap_open,
+                              gap_ext, terminate, tscore)
+    if Q.shape[0] % SUB_B:
+        raise ValueError(f"B={Q.shape[0]} must be a multiple of {SUB_B}")
+    return _launch_scan(2, "sw_scan2", Q, row_valid, R, col_valid, mat,
+                        gap_open, gap_ext, terminate, tscore, device)
 
 
 def sw_fused(buf, mat, B: int, lq: int, lr: int, gap_open: int,
@@ -390,21 +539,19 @@ def sw_fused(buf, mat, B: int, lq: int, lr: int, gap_open: int,
     device = _on_device(buf, "buf")
     if device.type == "cpu":
         return sw_fused_plain(buf, mat, B, lq, lr, gap_open, gap_ext)
-    if lq % 2 or lr % 2:
-        raise ValueError(f"lq={lq}, lr={lr} must be even (packed nibbles)")
-    _check(buf, "buf", torch.uint8, (B, lq // 2 + lr // 2 + 12), device)
-    _check(mat, "mat", torch.int32, (5, 5), device)
-    lib = load()
-    out = torch.empty((5, B), dtype=torch.int32, device=device)
-    scratch = _scratch(lib, B, lq, device)
-    err = lib.smr_sw_fused(
-        buf.data_ptr(), mat.data_ptr(), B, lq, lr, int(gap_open),
-        int(gap_ext), out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "sw_fused")
-    LAUNCHES["sw_fused"] += 1
-    return out
+    return _launch_fused(1, "sw_fused", buf, mat, B, lq, lr, gap_open,
+                         gap_ext, device)
+
+
+def sw_fused2(buf, mat, B: int, lq: int, lr: int, gap_open: int,
+              gap_ext: int) -> torch.Tensor:
+    """sw_fused's contract through the v2 kernel, for any B (the kernel
+    masks the ragged last block of 512 pairs itself)."""
+    device = _on_device(buf, "buf")
+    if device.type == "cpu":
+        return sw_fused2_plain(buf, mat, B, lq, lr, gap_open, gap_ext)
+    return _launch_fused(2, "sw_fused2", buf, mat, B, lq, lr, gap_open,
+                         gap_ext, device)
 
 
 def sw_score_batch(query, qlen, ref, rlen, mat, gap_open: int,

@@ -7,7 +7,9 @@ waves), ``batch_coords_hostgather``, ``batch`` (the python traverse),
 the ``_device_call`` hook and ``_traceback_many``.
 
 On ``cuda`` each wave block is one ``sw_fused`` kernel launch
-(ops/sw_kernels.py): the block is packed by the native ``sw_fill_block``
+(ops/sw_kernels.py; ``sw_fused2``, the batch-major kernel, with
+``SMR_PALLAS=2``, as the JAX package's sw_fused_call takes its v2 Pallas
+kernel there): the block is packed by the native ``sw_fill_block``
 straight into a pinned staging tensor, uploaded with ``non_blocking``,
 scored, and its ``[5, B]`` result copied back into a pinned host tensor
 behind a CUDA event; ``batch_coords_fetch`` waits on the event.  On
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from . import sw_kernels
-from .sw_kernels import sw_fused, sw_score_batch
+from .sw_kernels import sw_fused, sw_fused2, sw_score_batch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,7 +38,7 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "sortmerna_tpu_torch: the SW kernels run on 'cuda' (the "
+                "sortmerna_tpu_torch: the kernels run on 'cuda' (the "
                 "default) but torch.cuda.is_available() is False; pass "
                 "device='cpu' (SMR_TORCH_DEVICE=cpu for the CLI) to run "
                 "their plain PyTorch versions on the CPU")
@@ -74,14 +76,18 @@ class TorchSwBackend:
             from .. import native
             if native.have_native():
                 self.native = native
+        # SMR_PALLAS=2 picks the batch-major v2 kernel; "1" and unset both
+        # mean sw_fused, which stands for v1 and the XLA scan alike
+        self.v2 = os.environ.get("SMR_PALLAS") == "2"
         if self.device.type == "cuda":
-            sw_kernels.load()           # build now: fail before any wave
+            # build now: fail before any wave
+            sw_kernels.load_library("sw_scan2" if self.v2 else "sw_scan")
 
     def _device_call(self, buf: torch.Tensor, B: int, lq: int, lr: int):
         """One fused SW launch on a block already on ``self.device``;
         returns the int32 [5, B] result there."""
-        return sw_fused(buf, self.mat, B, lq, lr, self.gap_open,
-                        self.gap_ext)
+        fused = sw_fused2 if self.v2 else sw_fused
+        return fused(buf, self.mat, B, lq, lr, self.gap_open, self.gap_ext)
 
     def _traceback_many(self, refs, queries, scores, bands):
         if self.native is not None:

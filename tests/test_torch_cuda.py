@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Int32-exact, at small shapes that reach both storage paths of the kernel
-(rows in registers for Lq <= 1024, in global scratch above).  Every test
+Int32-exact (the seed probe: the same arrays in the same order), at small
+shapes that reach both storage paths of the warp-per-pair kernel (rows in
+registers for Lq <= 1024, in global scratch above) and the odd inputs of
+the batch-major one.  Every test
 is marked ``cuda`` and skips without a GPU.  The JAX package is not
 needed, so on a machine without JAX run them past the suite's conftest:
 
@@ -67,7 +69,110 @@ def test_sw_fused_kernel_matches_plain(cuda, shape):
     _same(got, K.sw_fused_plain(buf, mat, B, lq, lr, 5, 2))
 
 
-def test_backend_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("shape", [(512, 256, 256), (1024, 64, 136),
+                                   (512, 4096, 64)])
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan2_kernel_matches_plain(cuda, shape, terminate):
+    """The v2 kernel: a second 512-pair block, a tile whose last 128-column
+    chunk is clamped, ref chars outside 0..4, and the 3-reduction
+    tie-break of Lq = 4096."""
+    B, Lq, Lr = shape
+    rng = np.random.default_rng(B + Lq + Lr + terminate)
+    Q, rv, R, cv = testing.scan_tiles(rng, B, Lq, Lr)[:4]
+    odd = rng.random(R.shape) < 0.02
+    R[odd] = rng.choice([-2, 5, 7, 9], int(odd.sum()))
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda) for a in (Q, rv, R, cv))
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = K.sw_scan2_plain(Q, rv, R, cv, mat, 5, 2, False, None)[0] \
+        if terminate else None
+    before = K.LAUNCHES["sw_scan2"]
+    got = K.sw_scan2(Q, rv, R, cv, mat, 5, 2, terminate, ts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sw_scan2"] == before + 1
+    _same(got, K.sw_scan2_plain(Q, rv, R, cv, mat, 5, 2, terminate, ts))
+
+
+@pytest.mark.parametrize("shape", [(512, 256, 256), (300, 256, 256),
+                                   (700, 512, 136), (16, 2048, 1024)])
+def test_sw_fused2_kernel_matches_plain(cuda, shape):
+    """Any B (a ragged last block of 512 pairs), nibbles 5..15 in the
+    windows of one pair in ten."""
+    B, lq, lr = shape
+    rng = np.random.default_rng(sum(shape) + 2)
+    buf = testing.fused_block(rng, B, lq, lr)
+    odd = (rng.random((B, 1)) < 0.1) \
+        & (rng.random((B, lq // 2 + lr // 2)) < 0.05)
+    buf[:, :lq // 2 + lr // 2][odd] = rng.integers(0x50, 0x100,
+                                                   int(odd.sum()))
+    buf = torch.from_numpy(buf).to(cuda)
+    mat = torch.from_numpy(MAT).to(cuda)
+    before = K.LAUNCHES["sw_fused2"]
+    got = K.sw_fused2(buf, mat, B, lq, lr, 5, 2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sw_fused2"] == before + 1
+    _same(got, K.sw_fused2_plain(buf, mat, B, lq, lr, 5, 2))
+
+
+@pytest.fixture(scope="module")
+def probe_part(tmp_path_factory):
+    from sortmerna_tpu_torch.index.builder import build_index
+    db = str(tmp_path_factory.mktemp("probe") / "db.fasta")
+    seqs = testing.make_db(db, 60, n_families=6, len_range=(1300, 1400),
+                           seed=3)
+    return build_index(db).parts[0], seqs
+
+
+def _probe_windows(seqs, n, seed):
+    """Windows cut from the reference (with 0-3 point edits) and random
+    ones, as packed 9-mer halves."""
+    rng = np.random.default_rng(seed)
+    code = np.zeros(256, np.int64)
+    code[list(b"ACGT")] = [0, 1, 2, 3]
+    weights = 4 ** np.arange(8, -1, -1)
+    w1, w2 = [], []
+    while len(w1) < n:
+        e = code[np.frombuffer(seqs[int(rng.integers(len(seqs)))],
+                               np.uint8)]
+        st = int(rng.integers(0, len(e) - 18))
+        w = e[st:st + 18].copy()
+        for _ in range(int(rng.integers(0, 4))):
+            w[rng.integers(0, 18)] = rng.integers(0, 4)
+        if rng.random() < 0.2:
+            w = rng.integers(0, 4, 18)
+        w1.append(int(w[:9] @ weights))
+        w2.append(int(w[9:] @ weights))
+    return np.asarray(w1, np.int64), np.asarray(w2, np.int64)
+
+
+@pytest.mark.parametrize("full_search", [False, True])
+@pytest.mark.parametrize("minoccur", [0, 2])
+def test_seed_probe_kernels_match_plain(cuda, probe_part, full_search,
+                                        minoccur):
+    from sortmerna_tpu_torch.ops import seed_search as S
+    part, seqs = probe_part
+    w1, w2 = _probe_windows(seqs, 5003, seed=full_search + 2 * minoccur)
+    before = dict(S.LAUNCHES)
+    got = S.DeviceSeedSearcher(part, minoccur, full_search, device=cuda) \
+        .search_windows(w1, w2)
+    assert S.LAUNCHES["seed_probe"] == before["seed_probe"] + 1
+    assert S.LAUNCHES["seed_compact"] == before["seed_compact"] + 1
+    want = S.DeviceSeedSearcher(part, minoccur, full_search, device="cpu") \
+        .search_windows(w1, w2)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int64
+        assert np.array_equal(g, w)
+    assert len(want[0]) > 1000
+
+
+@pytest.mark.parametrize("pallas", [None, "2"])
+def test_backend_on_cuda_matches_cpu(cuda, pallas, monkeypatch):
+    """The wave path on both kernels: sw_fused, and sw_fused2 with
+    SMR_PALLAS=2."""
+    if pallas:
+        monkeypatch.setenv("SMR_PALLAS", pallas)
+    else:
+        monkeypatch.delenv("SMR_PALLAS", raising=False)
+    kernel = "sw_fused2" if pallas else "sw_fused"
     rng = np.random.default_rng(17)
     n = 700
     q_len = rng.integers(1, 400, n).astype(np.int32)
@@ -83,7 +188,8 @@ def test_backend_on_cuda_matches_cpu(cuda):
     jobs = (q_data, q_off, q_len, r_data, r_off, r_len, minimal)
     K.reset_launches()
     got = TorchSwBackend(MAT, 5, 2, device="cuda").batch_coords(*jobs)
-    assert K.LAUNCHES["sw_fused"] == 1     # 700 jobs fit one block
+    assert K.LAUNCHES[kernel] == 1         # 700 jobs fit one block
+    assert sum(K.LAUNCHES.values()) == 1
     want = TorchSwBackend(MAT, 5, 2, device="cpu").batch_coords(*jobs)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)

@@ -18,7 +18,10 @@ import os
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# the suite runs several workers on the machine's cores: one intra-op
+# thread each keeps torch's OpenMP pools from oversubscribing them
+torch.set_num_threads(1)
 
 from sortmerna_tpu import cli as jcli                       # noqa: E402
 from sortmerna_tpu_torch import cli as tcli                 # noqa: E402

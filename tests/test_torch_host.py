@@ -14,7 +14,10 @@ import pathlib
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# the suite runs several workers on the machine's cores: one intra-op
+# thread each keeps torch's OpenMP pools from oversubscribing them
+torch.set_num_threads(1)
 
 import sortmerna_tpu.index.artifact as jart                  # noqa: E402
 import sortmerna_tpu_torch.index.artifact as tart            # noqa: E402

@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs several workers on the machine's cores: one intra-op
+# thread each keeps torch's OpenMP pools from oversubscribing them
+torch.set_num_threads(1)
 
 from sortmerna_tpu_torch import cli as tcli                 # noqa: E402
 from sortmerna_tpu_torch import testing                     # noqa: E402
@@ -90,7 +93,7 @@ def test_cli_run_imports_no_jax_and_no_jax_package(tmp_path):
     seqs = testing.make_db(db, 30, n_families=3, len_range=(1300, 1400),
                            seed=51)
     testing.make_reads(reads, seqs, 300, seed=52)
-    env = dict(os.environ, SMR_TORCH_DEVICE="cpu")
+    env = dict(os.environ, SMR_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     p = subprocess.run(
         [sys.executable, "-c", _CHILD, str(REPO), "-ref", db, "-reads", reads]
         + testing.VERIFY_FLAGS

@@ -13,6 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
+# the suite runs several workers on the machine's cores: one intra-op
+# thread each keeps torch's OpenMP pools from oversubscribing them
+torch.set_num_threads(1)
 
 from sortmerna_tpu.constants import scoring_matrix_5x5      # noqa: E402
 from sortmerna_tpu.ops import sw_jax                        # noqa: E402
@@ -172,7 +175,10 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     mat = torch.from_numpy(MAT)
     out = K.sw_fused(buf, mat, 64, 256, 256, 5, 2)
     assert torch.equal(out, K.sw_fused_plain(buf, mat, 64, 256, 256, 5, 2))
-    assert K.LAUNCHES == {"sw_scan": 0, "sw_fused": 0}
+    out = K.sw_fused2(buf, mat, 64, 256, 256, 5, 2)
+    assert torch.equal(out, K.sw_fused2_plain(buf, mat, 64, 256, 256, 5, 2))
+    assert K.LAUNCHES == {"sw_scan": 0, "sw_fused": 0, "sw_scan2": 0,
+                          "sw_fused2": 0}
 
 
 def test_wrappers_refuse_other_devices():
