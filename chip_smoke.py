@@ -9,12 +9,17 @@ printed):
 1. card: ``nvidia-smi`` name and power limit, torch / CUDA versions;
 2. build: every kernel source (csrc/*.cu, one nvcc each for sm_90a), the
    native host library and the ALP oracle, compiled from this checkout in
-   parallel;
+   parallel; the log quotes ptxas's registers and spill bytes for each
+   instantiation of the v2 kernels (csrc/sw_scan2.cu);
 3. parity: every SW kernel against its plain PyTorch version on the card,
-   bit-exact (int32 equality): sw_scan, sw_fused, and the batch-major
+   bit-exact (int32 equality): sw_scan, sw_fused, and the v2 kernels
    sw_scan2 (4096 x 256 x 256 and 512 x 4096 x 256, both terminate
    modes) and sw_fused2 (4096 x 256 x 256, a ragged 300 x 256 x 256,
-   64 x 2048 x 2048);
+   64 x 2048 x 2048), then both v2 entries on the edge inputs of
+   ``testing.edge_tiles`` / ``edge_block`` (lengths spread over the tile,
+   tie-heavy and all-mismatch pairs, gap penalties 5/2, 1/3 and 0/0, a
+   tscore below the forward best) at 4096 x 256 x 256 and 1024 x 1024 x
+   256;
 4. timing: each SW kernel at the main path's block shape (4096 x 256 x
    256) with CUDA events, beside its plain version and its bound;
 5. cpu-vs-gpu: the first 2,000 reads aligned by the port's CLI on ``cpu``
@@ -51,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -157,6 +163,29 @@ def equal_or_raise(name, got, want):
     MAX_ABS_ERR[key] = max(MAX_ABS_ERR.get(key, 0), err)
 
 
+def ptxas_report(text):
+    """(kernel<K>, registers, spill bytes stored + loaded) for each entry
+    function of an ``nvcc -Xptxas -v`` log, in its order."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d(sw_\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else m.group(1))
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -202,6 +231,10 @@ def phase_build():
     log("build: " + ", ".join(f"{k} {v:.1f}s" for k, v in done.items())
         + f" ({', '.join(stems)}); ptxas report in "
         "chiprun_out/chip_smoke/ptxas.txt")
+    v2 = ptxas_report(sw_kernels.build_log("sw_scan2").read_text())
+    log("ptxas sw_scan2.cu (registers, spill bytes; <0> keeps rows in "
+        "scratch): " + ", ".join(f"{n} {r} regs {s} spill" for n, r, s in v2))
+    return v2
 
 
 def phase_parity(mat):
@@ -243,6 +276,41 @@ def phase_parity(mat):
             n_pass = int((got[1] >= 0).sum())
             log(f"parity {name} {B}x{lq}x{lr}: bit-exact "
                 f"({n_pass}/{B} pairs pass to the begin pass)")
+    phase_parity_edges(mat)
+
+
+def phase_parity_edges(mat):
+    """Both v2 entries on the edge inputs, at each edge gap pair."""
+    import numpy as np
+    import torch
+    from sortmerna_tpu_torch import testing as T
+    from sortmerna_tpu_torch.ops import sw_kernels as K
+    rng = np.random.default_rng(321)
+    dev = torch.device("cuda")
+    for (B, L, Lr) in ((4096, 256, 256), (1024, 1024, 256)):
+        Q, rv, R, cv = (torch.from_numpy(a).to(dev)
+                        for a in T.edge_tiles(rng, B, L, Lr))
+        for go, ge in T.EDGE_GAPS:
+            best = K.sw_scan2_plain(Q, rv, R, cv, mat, go, ge, False,
+                                    None)[0]
+            for term in (False, True):
+                ts = torch.from_numpy(T.edge_tscore(
+                    rng, best.cpu().numpy())).to(dev) if term else None
+                got = K.sw_scan2(Q, rv, R, cv, mat, go, ge, term, ts)
+                torch.cuda.synchronize()
+                want = K.sw_scan2_plain(Q, rv, R, cv, mat, go, ge, term, ts)
+                equal_or_raise(f"sw_scan2 edge {B}x{L}x{Lr} gaps {go}/{ge} "
+                               f"terminate={term}", got, want)
+        buf = torch.from_numpy(T.edge_block(rng, B, L, Lr)).to(dev)
+        for go, ge in T.EDGE_GAPS:
+            got = K.sw_fused2(buf, mat, B, L, Lr, go, ge)
+            torch.cuda.synchronize()
+            want = K.sw_fused2_plain(buf, mat, B, L, Lr, go, ge)
+            equal_or_raise(f"sw_fused2 edge {B}x{L}x{Lr} gaps {go}/{ge}",
+                           got, want)
+        log(f"parity sw_scan2 / sw_fused2 edge inputs {B}x{L}x{Lr}, gaps "
+            + ", ".join(f"{go}/{ge}" for go, ge in T.EDGE_GAPS)
+            + ", both terminate modes: bit-exact")
 
 
 def phase_timing(mat):
@@ -693,7 +761,7 @@ def main() -> int:
     mat = torch.as_tensor(scoring_matrix_5x5(2, -3, 0).astype("int32")) \
         .cuda().contiguous()
 
-    phase_build()
+    ptxas_v2 = phase_build()
     # the parity and timing phases are sw_scan2's only launches: no path
     # of the align task calls it (as sw_scan_pallas2 has no caller outside
     # sw_fused_call in the JAX package)
@@ -728,7 +796,8 @@ def main() -> int:
         path_launches["sw_scan"] = phase_host_path(top, db, reads)["sw_scan"]
 
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
-        json.dump(dict(card=card, timing=timing, align=results,
+        json.dump(dict(card=card, ptxas_sw_scan2=ptxas_v2, timing=timing,
+                       align=results,
                        pallas2_align=v2, device_probe_align=probe,
                        path_launches=path_launches), f, indent=1)
     kernels = []

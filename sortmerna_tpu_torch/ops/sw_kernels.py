@@ -13,8 +13,9 @@ Two hand-written CUDA routines, each with two entries:
     ``[B, lq/2+lr/2+12]`` -> int32 ``[5, B]`` (score, beg_ref, end_ref,
     beg_read, end_read); the counterpart of ``ops/sw_jax.py::sw_fused_call``.
 
-* csrc/sw_scan2.cu (thread per pair, 512 pairs a block), the port of the
-  batch-major Pallas kernel ``_scan_kernel2`` (``SMR_PALLAS=2``):
+* csrc/sw_scan2.cu (warp per pair, an anti-diagonal wavefront across the
+  lanes, rows fitted to each pair), the port of the batch-major Pallas
+  kernel ``_scan_kernel2`` (``SMR_PALLAS=2``):
 
   - ``sw_scan2`` -- the ``sw_scan_pallas2`` contract; ``B`` must be a
     multiple of 512, as there;
@@ -55,7 +56,7 @@ import torch
 
 NEG = -(1 << 30)
 NEG2 = -(1 << 29)          # the v2 kernel's NEG (sortmerna_tpu/ops/sw_pallas.py)
-SUB_B = 512                # pairs per grid step of the v2 kernel
+SUB_B = 512                # pairs per grid step of the TPU v2 kernel
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -545,8 +546,8 @@ def sw_fused(buf, mat, B: int, lq: int, lr: int, gap_open: int,
 
 def sw_fused2(buf, mat, B: int, lq: int, lr: int, gap_open: int,
               gap_ext: int) -> torch.Tensor:
-    """sw_fused's contract through the v2 kernel, for any B (the kernel
-    masks the ragged last block of 512 pairs itself)."""
+    """sw_fused's contract through the v2 kernel, for any B (one warp a
+    pair: no grid of 512 pairs to fill)."""
     device = _on_device(buf, "buf")
     if device.type == "cpu":
         return sw_fused2_plain(buf, mat, B, lq, lr, gap_open, gap_ext)

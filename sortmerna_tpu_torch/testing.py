@@ -171,14 +171,100 @@ def fused_block(rng, B: int, lq: int, lr: int,
         Q[4:12], R[4:12] = 0, 0               # ties everywhere
         Q[12:20, ::2], R[12:20, ::2] = 1, 1
         Q[20, :] = 4                          # N against N
-    Q[np.arange(lq)[None] >= ql[:, None]] = 0
-    R[np.arange(lr)[None] >= rl[:, None]] = 0
+    return pack_block(Q, R, ql, rl, minimal)
+
+
+def pack_block(Q, R, ql, rl, minimal) -> np.ndarray:
+    """Chars [B, lq] / [B, lr] (0..15) and the per-pair q_len, r_len,
+    minimal as the packed sw_fused input; chars past each length are
+    zeroed, as the align task packs them."""
+    B, lq = Q.shape
+    lr = R.shape[1]
+    Q = np.where(np.arange(lq)[None] < ql[:, None], Q, 0).astype(np.uint8)
+    R = np.where(np.arange(lr)[None] < rl[:, None], R, 0).astype(np.uint8)
     buf = np.empty((B, lq // 2 + lr // 2 + 12), np.uint8)
     buf[:, :lq // 2] = (Q[:, ::2] << 4) | Q[:, 1::2]
     buf[:, lq // 2:lq // 2 + lr // 2] = (R[:, ::2] << 4) | R[:, 1::2]
-    ints = np.stack([ql.astype(np.int32), rl.astype(np.int32), minimal], 1)
+    ints = np.stack([np.asarray(v).astype(np.int32)
+                     for v in (ql, rl, minimal)], 1)
     buf[:, lq // 2 + lr // 2:] = ints.astype("<i4").view(np.uint8)
     return buf
+
+
+# Gap penalties (open, extend) of the edge inputs: the default, go < ge
+# (where F from Hpre and F from H part ways), and zero (ties everywhere).
+EDGE_GAPS = ((5, 2), (1, 3), (0, 0))
+
+
+def _edge_chars(rng, B: int, Lq: int, Lr: int, top: int):
+    """Q, R chars in 0..top-1 for the edge inputs: every other pair holds
+    a noisy copy of its query's head in its ref; a quarter of the pairs
+    is low-entropy (chars 0 and 1 only), one in sixteen constant and one
+    in sixteen all-mismatch (a best of 0: no column may look better)."""
+    Q = rng.integers(0, top, (B, Lq))
+    R = rng.integers(0, top, (B, Lr))
+    low = np.arange(B) % 4 == 3
+    Q[low] %= 2
+    R[low] %= 2
+    const = np.arange(B) % 16 == 7
+    Q[const] = 1
+    R[const] = 1
+    for b in range(0, B, 2):
+        n = int(rng.integers(1, min(Lq, Lr) + 1))
+        at = int(rng.integers(0, Lr - n + 1))
+        seg = Q[b, :n].copy()
+        flip = rng.random(n) < 0.05
+        seg[flip] = rng.integers(0, top, int(flip.sum()))
+        R[b, at:at + n] = seg
+    miss = np.arange(B) % 16 == 13
+    Q[miss] = 0
+    R[miss] = 1
+    return Q, R
+
+
+def _edge_lengths(B: int, L: int) -> np.ndarray:
+    """Lengths spread evenly from 1 to L over the block (pair b gets
+    1 + b * L // B), so one launch of a warp-per-pair kernel meets every
+    count of rows a lane from 1 up to ceil(L / 32)."""
+    return 1 + np.arange(B) * L // B
+
+
+def edge_tiles(rng, B: int, Lq: int, Lr: int):
+    """Scan-contract tiles on which a wavefront kernel is likeliest to go
+    wrong: query lengths spread from 1 to Lq (``_edge_lengths``), ref
+    lengths from 1 to Lr in shuffled order, tie-heavy low-entropy pairs
+    (``_edge_chars``), and in one pair of five holes in the row mask
+    (invalid rows inside the span still feed the gap chain).  Returns Q,
+    row_valid, R, col_valid (numpy)."""
+    Q, R = _edge_chars(rng, B, Lq, Lr, 5)
+    qlen = _edge_lengths(B, Lq)
+    rlen = rng.permutation(_edge_lengths(B, Lr))
+    rv = np.arange(Lq)[None] < qlen[:, None]
+    cv = np.arange(Lr)[None] < rlen[:, None]
+    holes = np.arange(B) % 5 == 4
+    rv[holes] &= rng.random((int(holes.sum()), Lq)) < 0.85
+    return Q.astype(np.int32), rv, R.astype(np.int32), cv
+
+
+def edge_tscore(rng, best) -> np.ndarray:
+    """Terminate scores at or below the forward best (best - 0..5, at
+    least 0), so a begin-pass-like scan may stop mid-scan at an earlier
+    column whose maximum hits it."""
+    best = np.asarray(best)
+    return np.maximum(best - rng.integers(0, 6, best.shape), 0) \
+        .astype(np.int32)
+
+
+def edge_block(rng, B: int, lq: int, lr: int) -> np.ndarray:
+    """A packed sw_fused block of edge inputs: read lengths spread from 1
+    to lq (``_edge_lengths``), ref lengths read length + 0..40 (capped at
+    the tile), chars 0..4 (N included), tie-heavy low-entropy pairs, and
+    minimal 1..40 so most pairs run the begin pass."""
+    Q, R = _edge_chars(rng, B, lq, lr, 5)
+    ql = _edge_lengths(B, lq)
+    rl = (ql + rng.integers(0, 41, B)).clip(max=lr)
+    minimal = rng.integers(1, 41, B)
+    return pack_block(Q, R, ql, rl, minimal)
 
 
 def read_outputs(out_dir: str, paths: Sequence[str] = ()) -> dict:

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Int32-exact (the seed probe: the same arrays in the same order), at small
-shapes that reach both storage paths of the warp-per-pair kernel (rows in
-registers for Lq <= 1024, in global scratch above) and the odd inputs of
-the batch-major one.  Every test
+shapes that reach both storage paths of the warp-per-pair kernels (rows in
+registers for Lq <= 1024, in global scratch above), the odd inputs of v2
+and the edge inputs of
+``testing.edge_tiles`` / ``edge_block``.  Every test
 is marked ``cuda`` and skips without a GPU.  The JAX package is not
 needed, so on a machine without JAX run them past the suite's conftest:
 
@@ -70,12 +71,15 @@ def test_sw_fused_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("shape", [(512, 256, 256), (1024, 64, 136),
-                                   (512, 4096, 64)])
+                                   (512, 4096, 64), (4096, 256, 256),
+                                   (512, 1024, 96), (512, 1056, 64),
+                                   (512, 2048, 64)])
 @pytest.mark.parametrize("terminate", [False, True])
 def test_sw_scan2_kernel_matches_plain(cuda, shape, terminate):
     """The v2 kernel: a second 512-pair block, a tile whose last 128-column
-    chunk is clamped, ref chars outside 0..4, and the 3-reduction
-    tie-break of Lq = 4096."""
+    chunk is clamped, ref chars outside 0..4, the 3-reduction tie-break
+    of Lq = 4096, the main path's block shape, 32 rows a lane (Lq =
+    1024) and the rows-in-scratch path of tiles over 1,024 rows."""
     B, Lq, Lr = shape
     rng = np.random.default_rng(B + Lq + Lr + terminate)
     Q, rv, R, cv = testing.scan_tiles(rng, B, Lq, Lr)[:4]
@@ -93,10 +97,13 @@ def test_sw_scan2_kernel_matches_plain(cuda, shape, terminate):
 
 
 @pytest.mark.parametrize("shape", [(512, 256, 256), (300, 256, 256),
-                                   (700, 512, 136), (16, 2048, 1024)])
+                                   (700, 512, 136), (16, 2048, 1024),
+                                   (4096, 256, 256), (64, 1024, 512),
+                                   (64, 1056, 256)])
 def test_sw_fused2_kernel_matches_plain(cuda, shape):
-    """Any B (a ragged last block of 512 pairs), nibbles 5..15 in the
-    windows of one pair in ten."""
+    """Any B (a ragged last block), nibbles 5..15 in the windows of one
+    pair in ten; the main path's block shape, 32 rows a lane (lq =
+    1024) and the rows-in-scratch path of tiles over 1,024 rows."""
     B, lq, lr = shape
     rng = np.random.default_rng(sum(shape) + 2)
     buf = testing.fused_block(rng, B, lq, lr)
@@ -111,6 +118,56 @@ def test_sw_fused2_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert K.LAUNCHES["sw_fused2"] == before + 1
     _same(got, K.sw_fused2_plain(buf, mat, B, lq, lr, 5, 2))
+
+
+@pytest.mark.parametrize("Lq", [256, 1024, 2048])
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan2_kernel_matches_plain_on_edge_inputs(cuda, Lq, gaps,
+                                                      terminate):
+    """testing.edge_tiles (query lengths 1..Lq in one launch, so every
+    count of rows a lane from 1 to Lq / 32; tie-heavy pairs, holes in the
+    row mask), go < ge and zero gaps, a tscore below the forward best;
+    Lq = 2048 takes the rows-in-scratch path."""
+    go, ge = gaps
+    rng = np.random.default_rng(Lq + 10 * go + ge + terminate)
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
+                    for a in testing.edge_tiles(rng, 1024, Lq, 160))
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = None
+    if terminate:
+        best = K.sw_scan2_plain(Q, rv, R, cv, mat, go, ge, False, None)[0]
+        ts = torch.from_numpy(testing.edge_tscore(rng, best.cpu().numpy())) \
+            .to(cuda)
+    got = K.sw_scan2(Q, rv, R, cv, mat, go, ge, terminate, ts)
+    torch.cuda.synchronize()
+    _same(got, K.sw_scan2_plain(Q, rv, R, cv, mat, go, ge, terminate, ts))
+
+
+@pytest.mark.parametrize("lq", [256, 1024, 2048])
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+def test_sw_fused2_kernel_matches_plain_on_edge_blocks(cuda, lq, gaps):
+    """testing.edge_block: read lengths 1..lq in one launch, tie-heavy
+    pairs, most pairs through the begin pass, at each edge gap pair."""
+    go, ge = gaps
+    B, lr = 1024, 256
+    buf = torch.from_numpy(testing.edge_block(
+        np.random.default_rng(lq + 10 * go + ge), B, lq, lr)).to(cuda)
+    mat = torch.from_numpy(MAT).to(cuda)
+    got = K.sw_fused2(buf, mat, B, lq, lr, go, ge)
+    torch.cuda.synchronize()
+    _same(got, K.sw_fused2_plain(buf, mat, B, lq, lr, go, ge))
+
+
+def test_sw2_scratch_only_for_tiles_over_1024_rows(cuda):
+    """The register path (Lq <= 1024) allocates no global scratch; wider
+    tiles keep a lane's rows in planes H, E and the row codes of
+    ceil(Lq / 32) * 32 words a pair."""
+    lib = K.load_library("sw_scan2")
+    assert lib.smr_sw2_scratch_ints(4096, 256) == 0
+    assert lib.smr_sw2_scratch_ints(4096, 1024) == 0
+    assert lib.smr_sw2_scratch_ints(64, 1056) == 3 * 1056 * 64
+    assert lib.smr_sw2_scratch_ints(64, 1030) == 3 * 1056 * 64
 
 
 @pytest.fixture(scope="module")

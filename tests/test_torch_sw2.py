@@ -47,9 +47,9 @@ def _tiles(rng, B, Lq, Lr):
     return Q, rv, R, cv
 
 
-def _jax(fn, Q, rv, R, cv, terminate, ts, **kw):
+def _jax(fn, Q, rv, R, cv, terminate, ts, gaps=(5, 2), **kw):
     out = fn(jnp.asarray(Q), jnp.asarray(rv), jnp.asarray(R),
-             jnp.asarray(cv), jnp.asarray(MAT), 5, 2, terminate,
+             jnp.asarray(cv), jnp.asarray(MAT), *gaps, terminate,
              None if ts is None else jnp.asarray(ts), **kw)
     return [np.asarray(o) for o in out]
 
@@ -57,9 +57,9 @@ def _jax(fn, Q, rv, R, cv, terminate, ts, **kw):
 _pallas2 = functools.partial(_jax, sw_pallas.sw_scan_pallas2, interpret=True)
 
 
-def _plain2(Q, rv, R, cv, terminate, ts):
+def _plain2(Q, rv, R, cv, terminate, ts, gaps=(5, 2)):
     t = torch.from_numpy
-    out = K.sw_scan2_plain(t(Q), t(rv), t(R), t(cv), t(MAT), 5, 2,
+    out = K.sw_scan2_plain(t(Q), t(rv), t(R), t(cv), t(MAT), *gaps,
                            terminate, None if ts is None else t(ts))
     return [o.numpy() for o in out]
 
@@ -122,6 +122,53 @@ def test_scan2_plain_wide_tile_three_reduction_tiebreak(terminate):
     ts = _forward_best(Q, rv, R, cv) if terminate else None
     _assert_same(_plain2(Q, rv, R, cv, terminate, ts),
                  _jax(sw_jax._sw_scan, Q, rv, R, cv, terminate, ts))
+
+
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+@pytest.mark.parametrize("terminate", [False, True])
+def test_scan2_plain_matches_pallas2_on_edge_inputs(gaps, terminate):
+    """testing.edge_tiles: query lengths 1..Lq in one block, tie-heavy
+    pairs, holes in the row mask; gap penalties with go < ge and zero;
+    in terminate mode a tscore below the forward best, so scans stop
+    mid-tile.  The same inputs hold the CUDA kernel on the card."""
+    go, ge = gaps
+    rng = np.random.default_rng(100 + 10 * go + ge + terminate)
+    Q, rv, R, cv = testing.edge_tiles(rng, 512, 72, 80)
+    fw_best = _plain2(Q, rv, R, cv, False, None, gaps)[0]
+    ts = testing.edge_tscore(rng, fw_best) if terminate else None
+    want = _pallas2(Q, rv, R, cv, terminate, ts, gaps)
+    _assert_same(_plain2(Q, rv, R, cv, terminate, ts, gaps), want)
+    assert (want[1] >= 0).sum() > 400
+    if terminate:               # some scans stopped before their best
+        assert (want[0] < fw_best).sum() > 20
+
+
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+def test_fused2_plain_matches_pallas2_on_edge_blocks(gaps, monkeypatch):
+    """testing.edge_block (read lengths 1..lq in one block, tie-heavy
+    pairs, most pairs through the begin pass) through sw_fused_call with
+    SMR_PALLAS=2 and the v2 kernel interpreted, unjitted (so no trace of
+    another test is reused), at each edge gap pair."""
+    go, ge = gaps
+    B, lq, lr = 512, 48, 64
+    buf = testing.edge_block(np.random.default_rng(200 + 10 * go + ge),
+                             B, lq, lr)
+    monkeypatch.setenv("SMR_PALLAS", "2")
+    traced = []
+    orig = sw_pallas.sw_scan_pallas2
+
+    def pallas2(*a, **kw):
+        traced.append(1)
+        return orig(*a, interpret=True, **kw)
+
+    monkeypatch.setattr(sw_pallas, "sw_scan_pallas2", pallas2)
+    want = np.asarray(sw_jax.sw_fused_call.__wrapped__(
+        jnp.asarray(buf), jnp.asarray(MAT), B, lq, lr, go, ge))
+    assert len(traced) == 2             # both passes took the v2 kernel
+    got = K.sw_fused2_plain(torch.from_numpy(buf), torch.from_numpy(MAT),
+                            B, lq, lr, go, ge).numpy()
+    assert np.array_equal(got, want)
+    assert (want[1] >= 0).sum() > 150
 
 
 def test_scan2_rejects_a_batch_off_the_512_grid():
