@@ -10,16 +10,20 @@ printed):
 2. build: every kernel source (csrc/*.cu, one nvcc each for sm_90a), the
    native host library and the ALP oracle, compiled from this checkout in
    parallel; the log quotes ptxas's registers and spill bytes for each
-   instantiation of the v2 kernels (csrc/sw_scan2.cu);
+   instantiation of both SW sources (csrc/sw_scan.cu and csrc/sw_scan2.cu,
+   which share the wavefront core of csrc/sw_wave.cuh);
 3. parity: every SW kernel against its plain PyTorch version on the card,
-   bit-exact (int32 equality): sw_scan, sw_fused, and the v2 kernels
-   sw_scan2 (4096 x 256 x 256 and 512 x 4096 x 256, both terminate
-   modes) and sw_fused2 (4096 x 256 x 256, a ragged 300 x 256 x 256,
-   64 x 2048 x 2048), then both v2 entries on the edge inputs of
-   ``testing.edge_tiles`` / ``edge_block`` (lengths spread over the tile,
-   tie-heavy and all-mismatch pairs, gap penalties 5/2, 1/3 and 0/0, a
-   tscore below the forward best) at 4096 x 256 x 256 and 1024 x 1024 x
-   256;
+   bit-exact (int32 equality): sw_scan (4096 x 256 x 256 and 64 x 4096 x
+   256, both terminate modes), sw_fused (4096 x 256 x 256, 64 x 2048 x
+   2048), sw_scan2 (4096 x 256 x 256 and 512 x 4096 x 256) and sw_fused2
+   (4096 x 256 x 256, a ragged 300 x 256 x 256, 64 x 2048 x 2048); then
+   sw_scan, sw_scan2 and sw_score_batch (through the sw_scan kernel) on
+   query and ref codes in -7..15 (``testing.odd_tiles``); then all four
+   SW entries on the edge inputs of ``testing.edge_tiles`` /
+   ``edge_block`` (lengths spread over the tile, tie-heavy and
+   all-mismatch pairs, gap penalties 5/2, 1/3 and 0/0, a tscore below the
+   forward best), plain and with v1's odd chars, at 4096 x 256 x 256 and
+   1024 x 1024 x 256;
 4. timing: each SW kernel at the main path's block shape (4096 x 256 x
    256) with CUDA events, beside its plain version and its bound;
 5. cpu-vs-gpu: the first 2,000 reads aligned by the port's CLI on ``cpu``
@@ -50,6 +54,10 @@ Before the last line it prints the card line and one JSON line with the
 six kernels (launches on their path, ms, plain ms, bound); the last line
 is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
 chiprun_out/chip_smoke/.  It takes about five minutes.
+
+All four SW entries (sw_scan / sw_fused of csrc/sw_scan.cu, sw_scan2 /
+sw_fused2 of csrc/sw_scan2.cu) run the one wavefront core of
+csrc/sw_wave.cuh, each source with its own column reads and NEG.
 """
 
 from __future__ import annotations
@@ -71,8 +79,8 @@ T0 = time.perf_counter()
 # its DPX instructions: E = max(E - ge, Hgo) and F = max(F - ge, Hgo_up)
 # one __viaddmax_s32 each; max(E, F) one; H = max(diag + sub, max(E, F), 0)
 # one __viaddmax_s32_relu; Hgo = H - go one, shared by the next row's F
-# and the next column's E; the column max one.  The same count stands in
-# the note of csrc/sw_scan.cu.
+# and the next column's E; the column max one.  The note of
+# csrc/sw_wave.cuh (the wavefront core of both SW sources) refers to it.
 OPS_PER_CELL = 6
 INT32_LANES_PER_SM = 64      # CUDA programming guide, cc 9.0 throughput
 N_READS = 100000             # reads of the align phases
@@ -231,10 +239,13 @@ def phase_build():
     log("build: " + ", ".join(f"{k} {v:.1f}s" for k, v in done.items())
         + f" ({', '.join(stems)}); ptxas report in "
         "chiprun_out/chip_smoke/ptxas.txt")
-    v2 = ptxas_report(sw_kernels.build_log("sw_scan2").read_text())
-    log("ptxas sw_scan2.cu (registers, spill bytes; <0> keeps rows in "
-        "scratch): " + ", ".join(f"{n} {r} regs {s} spill" for n, r, s in v2))
-    return v2
+    report = {}
+    for stem in ("sw_scan", "sw_scan2"):
+        report[stem] = ptxas_report(sw_kernels.build_log(stem).read_text())
+        log(f"ptxas {stem}.cu (registers, spill bytes; <0> keeps rows in "
+            "scratch): " + ", ".join(f"{n} {r} regs {s} spill"
+                                     for n, r, s in report[stem]))
+    return report
 
 
 def phase_parity(mat):
@@ -276,41 +287,89 @@ def phase_parity(mat):
             n_pass = int((got[1] >= 0).sum())
             log(f"parity {name} {B}x{lq}x{lr}: bit-exact "
                 f"({n_pass}/{B} pairs pass to the begin pass)")
+    phase_parity_odd_codes(mat)
     phase_parity_edges(mat)
 
 
+def phase_parity_odd_codes(mat):
+    """sw_scan, sw_scan2 and sw_score_batch (the sw_scan kernel reading
+    its ref chars by take_along_axis) on query and ref codes in -7..15."""
+    import numpy as np
+    import torch
+    from sortmerna_tpu_torch import testing as T
+    from sortmerna_tpu_torch.ops import sw_kernels as K
+    rng = np.random.default_rng(654)
+    dev = torch.device("cuda")
+    for (B, Lq, Lr) in ((4096, 256, 256), (512, 2048, 128)):
+        Q, rv, R, cv, qlen, rlen = (torch.from_numpy(a).to(dev)
+                                    for a in T.odd_tiles(rng, B, Lq, Lr))
+        for name, kernel, plain in (("sw_scan", K.sw_scan, K.sw_scan_plain),
+                                    ("sw_scan2", K.sw_scan2,
+                                     K.sw_scan2_plain)):
+            best = plain(Q, rv, R, cv, mat, 5, 2, False, None)[0]
+            for term in (False, True):
+                ts = best if term else None
+                got = kernel(Q, rv, R, cv, mat, 5, 2, term, ts)
+                torch.cuda.synchronize()
+                equal_or_raise(f"{name} odd codes {B}x{Lq}x{Lr} "
+                               f"terminate={term}", got,
+                               plain(Q, rv, R, cv, mat, 5, 2, term, ts))
+        best = K.sw_score_batch_plain(Q, qlen, R, rlen, mat, 5, 2)[0]
+        for term in (False, True):
+            ts = best if term else None
+            got = K.sw_score_batch(Q, qlen, R, rlen, mat, 5, 2, term, ts)
+            torch.cuda.synchronize()
+            equal_or_raise(f"sw_scan (sw_score_batch) odd codes "
+                           f"{B}x{Lq}x{Lr} terminate={term}", got,
+                           K.sw_score_batch_plain(Q, qlen, R, rlen, mat, 5,
+                                                  2, term, ts))
+        log(f"parity sw_scan / sw_scan2 / sw_score_batch on codes -7..15 "
+            f"{B}x{Lq}x{Lr}, both terminate modes: bit-exact")
+
+
 def phase_parity_edges(mat):
-    """Both v2 entries on the edge inputs, at each edge gap pair."""
+    """All four SW entries on the edge inputs, plain and with v1's odd
+    chars (codes -7..15, nibbles 0..15), at each edge gap pair."""
     import numpy as np
     import torch
     from sortmerna_tpu_torch import testing as T
     from sortmerna_tpu_torch.ops import sw_kernels as K
     rng = np.random.default_rng(321)
     dev = torch.device("cuda")
+    scans = (("sw_scan", K.sw_scan, K.sw_scan_plain),
+             ("sw_scan2", K.sw_scan2, K.sw_scan2_plain))
+    fused = (("sw_fused", K.sw_fused, K.sw_fused_plain),
+             ("sw_fused2", K.sw_fused2, K.sw_fused2_plain))
     for (B, L, Lr) in ((4096, 256, 256), (1024, 1024, 256)):
-        Q, rv, R, cv = (torch.from_numpy(a).to(dev)
-                        for a in T.edge_tiles(rng, B, L, Lr))
-        for go, ge in T.EDGE_GAPS:
-            best = K.sw_scan2_plain(Q, rv, R, cv, mat, go, ge, False,
-                                    None)[0]
-            for term in (False, True):
-                ts = torch.from_numpy(T.edge_tscore(
-                    rng, best.cpu().numpy())).to(dev) if term else None
-                got = K.sw_scan2(Q, rv, R, cv, mat, go, ge, term, ts)
-                torch.cuda.synchronize()
-                want = K.sw_scan2_plain(Q, rv, R, cv, mat, go, ge, term, ts)
-                equal_or_raise(f"sw_scan2 edge {B}x{L}x{Lr} gaps {go}/{ge} "
-                               f"terminate={term}", got, want)
-        buf = torch.from_numpy(T.edge_block(rng, B, L, Lr)).to(dev)
-        for go, ge in T.EDGE_GAPS:
-            got = K.sw_fused2(buf, mat, B, L, Lr, go, ge)
-            torch.cuda.synchronize()
-            want = K.sw_fused2_plain(buf, mat, B, L, Lr, go, ge)
-            equal_or_raise(f"sw_fused2 edge {B}x{L}x{Lr} gaps {go}/{ge}",
-                           got, want)
-        log(f"parity sw_scan2 / sw_fused2 edge inputs {B}x{L}x{Lr}, gaps "
-            + ", ".join(f"{go}/{ge}" for go, ge in T.EDGE_GAPS)
-            + ", both terminate modes: bit-exact")
+        for odd in (False, True):
+            Q, rv, R, cv = (torch.from_numpy(a).to(dev)
+                            for a in T.edge_tiles(rng, B, L, Lr, odd=odd))
+            for go, ge in T.EDGE_GAPS:
+                for name, kernel, plain in scans:
+                    best = plain(Q, rv, R, cv, mat, go, ge, False, None)[0]
+                    for term in (False, True):
+                        ts = torch.from_numpy(T.edge_tscore(
+                            rng, best.cpu().numpy())).to(dev) \
+                            if term else None
+                        got = kernel(Q, rv, R, cv, mat, go, ge, term, ts)
+                        torch.cuda.synchronize()
+                        want = plain(Q, rv, R, cv, mat, go, ge, term, ts)
+                        equal_or_raise(
+                            f"{name} edge{' odd' * odd} {B}x{L}x{Lr} gaps "
+                            f"{go}/{ge} terminate={term}", got, want)
+            buf = torch.from_numpy(T.edge_block(rng, B, L, Lr,
+                                                odd=odd)).to(dev)
+            for go, ge in T.EDGE_GAPS:
+                for name, kernel, plain in fused:
+                    got = kernel(buf, mat, B, L, Lr, go, ge)
+                    torch.cuda.synchronize()
+                    want = plain(buf, mat, B, L, Lr, go, ge)
+                    equal_or_raise(f"{name} edge{' odd' * odd} {B}x{L}x{Lr} "
+                                   f"gaps {go}/{ge}", got, want)
+            log(f"parity sw_scan / sw_fused / sw_scan2 / sw_fused2 edge "
+                f"inputs{' with odd chars' * odd} {B}x{L}x{Lr}, gaps "
+                + ", ".join(f"{go}/{ge}" for go, ge in T.EDGE_GAPS)
+                + ", both terminate modes: bit-exact")
 
 
 def phase_timing(mat):
@@ -369,6 +428,9 @@ def phase_timing(mat):
         log(f"timing {k} {B}x{lq}x{lr}: {v['ms']:.4f} ms (plain "
             f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms over "
             f"{v['cells']} cells at {int32_rate / 1e12:.2f} int32 Top/s)")
+    log("timing v1 / v2 on the same blocks: sw_fused / sw_fused2 "
+        f"{res['sw_fused']['ms'] / res['sw_fused2']['ms']:.3f}x, sw_scan / "
+        f"sw_scan2 {res['sw_scan']['ms'] / res['sw_scan2']['ms']:.3f}x")
     return res
 
 
@@ -761,7 +823,7 @@ def main() -> int:
     mat = torch.as_tensor(scoring_matrix_5x5(2, -3, 0).astype("int32")) \
         .cuda().contiguous()
 
-    ptxas_v2 = phase_build()
+    ptxas = phase_build()
     # the parity and timing phases are sw_scan2's only launches: no path
     # of the align task calls it (as sw_scan_pallas2 has no caller outside
     # sw_fused_call in the JAX package)
@@ -796,7 +858,7 @@ def main() -> int:
         path_launches["sw_scan"] = phase_host_path(top, db, reads)["sw_scan"]
 
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
-        json.dump(dict(card=card, ptxas_sw_scan2=ptxas_v2, timing=timing,
+        json.dump(dict(card=card, ptxas=ptxas, timing=timing,
                        align=results,
                        pallas2_align=v2, device_probe_align=probe,
                        path_launches=path_launches), f, indent=1)

@@ -1,21 +1,24 @@
 """The SW column-scan kernels: wrappers, plain PyTorch versions, build.
 
-Two hand-written CUDA routines, each with two entries:
+Two hand-written CUDA sources, each with two entries, on one DP core
+(``csrc/sw_wave.cuh``: a warp per pair, an anti-diagonal wavefront across
+the lanes, rows fitted to each pair, DPX arithmetic); each source brings
+its own column reads and NEG:
 
-* csrc/sw_scan.cu (warp per pair), the port of the JAX package's Pallas
-  kernel ``sortmerna_tpu/ops/sw_pallas.py::_scan_kernel``:
+* csrc/sw_scan.cu, the port of the JAX package's Pallas kernel
+  ``sortmerna_tpu/ops/sw_pallas.py::_scan_kernel`` (the default path):
 
   - ``sw_scan`` -- the column scan over padded tiles with explicit row and
     column masks, ``(Q, row_valid, R, col_valid, mat, go, ge, terminate,
     tscore) -> (best, end_ref, end_read)``; it also stands for the XLA
-    twin ``ops/sw_jax.py::_sw_scan``;
+    twin ``ops/sw_jax.py::_sw_scan``, and, with its gather flag set, for
+    ``sw_jax.sw_score_batch``;
   - ``sw_fused`` -- one SW wave block in one launch: uint8
     ``[B, lq/2+lr/2+12]`` -> int32 ``[5, B]`` (score, beg_ref, end_ref,
     beg_read, end_read); the counterpart of ``ops/sw_jax.py::sw_fused_call``.
 
-* csrc/sw_scan2.cu (warp per pair, an anti-diagonal wavefront across the
-  lanes, rows fitted to each pair), the port of the batch-major Pallas
-  kernel ``_scan_kernel2`` (``SMR_PALLAS=2``):
+* csrc/sw_scan2.cu, the port of the batch-major Pallas kernel
+  ``_scan_kernel2`` (``SMR_PALLAS=2``):
 
   - ``sw_scan2`` -- the ``sw_scan_pallas2`` contract; ``B`` must be a
     multiple of 512, as there;
@@ -30,15 +33,19 @@ inclusive prefix max of ``Hpre-go+row*ge`` shifted down one row, minus
 ``(row-1)*ge``), ``H = max(Hpre, F)`` masked by the row mask.  The best
 score updates on a strict ``>`` in valid, not-done columns (earliest
 column wins), at the smallest row of the column max; in terminate mode a
-pair is done once its column max equals ``tscore``.  v2 reads its columns
-differently on odd inputs (see ``_v2_columns``).
+pair is done once its column max equals ``tscore``.  A query char reads
+the profile row that the JAX package's ``mat.T[Q]`` gather gives (a
+negative index wraps once, then clamps to 0..4: ``_profile_rows``).  v2
+reads its columns differently on odd inputs (see ``_v2_columns``), and
+``sw_score_batch`` reads them by ``take_along_axis`` (see its plain twin).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises -- it never falls back.  Each launch adds
 one to ``LAUNCHES[name]``.  ``build()`` compiles every ``csrc/*.cu`` with
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<stem>.so`` (one
-nvcc per source, run in parallel); ``load_library`` loads one at first
-use and binds it with ctypes (plain C interface).
+nvcc per source, run in parallel; a library is rebuilt when its source or
+any ``csrc/*.cuh`` is newer); ``load_library`` loads one at first use and
+binds it with ctypes (plain C interface).
 """
 
 from __future__ import annotations
@@ -75,7 +82,7 @@ _FUSED_ARGS = [_VP, _VP] + [_CI] * 5 + [_VP] * 3
 SIGNATURES = {
     "sw_scan": {
         "smr_sw_scratch_ints": (ctypes.c_longlong, [_CI, _CI]),
-        "smr_sw_scan": (_CI, _SCAN_ARGS),
+        "smr_sw_scan": (_CI, _SCAN_ARGS + [_CI]),     # + gather
         "smr_sw_fused": (_CI, _FUSED_ARGS),
     },
     "sw_scan2": {
@@ -121,10 +128,11 @@ def build_log(stem: str) -> pathlib.Path:
 
 def build_one(stem: str, force: bool = False) -> pathlib.Path:
     """Compile csrc/<stem>.cu for sm_90a (if the library is missing or
-    older than its source) to a temp name, then rename it atomically."""
+    older than its source or a csrc/*.cuh header) to a temp name, then
+    rename it atomically."""
     src, lib = CSRC / f"{stem}.cu", library_path(stem)
-    if (not force and lib.exists()
-            and lib.stat().st_mtime >= src.stat().st_mtime):
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(".so.%d" % os.getpid())
@@ -177,6 +185,13 @@ def sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open, gap_ext,
                         gap_ext, terminate, tscore, NEG)
 
 
+def _profile_rows(Q):
+    """The profile row that ``mat.T[Q]`` reads in the JAX package: a
+    negative index wraps once (-1 reads row 4), then it clamps to 0..4."""
+    Q = Q.long()
+    return torch.where(Q < 0, Q + 5, Q).clamp(0, 4)
+
+
 def _v2_columns(R, col_valid):
     """How _scan_kernel2 reads its ref columns (sw_pallas.py:206-218):
     ``R_enc = where(col_valid, R, 7)``; column j comes out of its
@@ -222,7 +237,7 @@ def _column_scan(Q, row_valid, rcode, col_valid, mat, gap_open, gap_ext,
     rows = torch.arange(Lq, dtype=i32, device=dev)
     mat = mat.to(device=dev, dtype=i32)
 
-    prof = mat.t()[Q.long().clamp(0, 4)]                  # [B, Lq, 5]
+    prof = mat.t()[_profile_rows(Q)]                      # [B, Lq, 5]
     prof = torch.where(row_valid[:, :, None], prof,
                        torch.tensor(neg, dtype=i32, device=dev))
     # the where-chain over ref chars as one gather per column: prof5[b, c]
@@ -369,7 +384,7 @@ def sw_score_batch_plain(query, qlen, ref, rlen, mat, gap_open: int,
     rlen = rlen.to(i32)
     qmask = rows[None, :] < qlen[:, None]
     mat = mat.to(device=dev, dtype=i32)
-    prof = mat.t()[query.long().clamp(0, 4)]             # [B, Lq, 5]
+    prof = mat.t()[_profile_rows(query)]                 # [B, Lq, 5]
     prof = torch.where(qmask[:, :, None], prof,
                        torch.tensor(NEG, dtype=i32, device=dev))
     if tscore is None:
@@ -384,12 +399,18 @@ def sw_score_batch_plain(query, qlen, ref, rlen, mat, gap_open: int,
     end_ref = torch.full((B,), -1, dtype=i32, device=dev)
     end_read = qlen - 1
     done = torch.zeros(B, dtype=torch.bool, device=dev)
-    ridx = ref.long().clamp(0, 4)
+    # the ref char's profile by take_along_axis: -5..-1 wrap, and any
+    # code still outside 0..4 reads its fill value, INT32_MIN
+    ridx = ref.long()
+    ridx = torch.where(ridx < 0, ridx + 5, ridx)
+    fill = (ridx < 0) | (ridx > 4)
+    ridx = ridx.clamp(0, 4)
     # columns past every pair's rlen change no output
     for j in range(min(Lr, int(rlen.max()) if B else 0)):
         rj = ridx[:, j]
         sub = torch.gather(prof, 2,
                            rj[:, None, None].expand(B, Lq, 1))[:, :, 0]
+        sub = torch.where(fill[:, j, None], torch.iinfo(i32).min, sub)
         diag = torch.cat([zcol, Hprev[:, :-1]], dim=1) + sub
         E = torch.maximum(E - gap_ext, Hprev - gap_open)
         Hpre = torch.clamp(torch.maximum(diag, E), min=0)
@@ -457,7 +478,7 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_scan(version: int, name: str, Q, row_valid, R, col_valid, mat,
-                 gap_open, gap_ext, terminate, tscore, device):
+                 gap_open, gap_ext, terminate, tscore, device, *tail):
     B, Lq = Q.shape
     Lr = R.shape[1]
     _check(Q, "Q", torch.int32, (B, Lq), device)
@@ -478,7 +499,7 @@ def _launch_scan(version: int, name: str, Q, row_valid, R, col_valid, mat,
         tscore.data_ptr() if tscore is not None else None,
         B, Lq, Lr, out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        torch.cuda.current_stream(device).cuda_stream)
+        torch.cuda.current_stream(device).cuda_stream, *tail)
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out[0], out[1], out[2]
@@ -515,7 +536,7 @@ def sw_scan(Q, row_valid, R, col_valid, mat, gap_open: int, gap_ext: int,
         return sw_scan_plain(Q, row_valid, R, col_valid, mat, gap_open,
                              gap_ext, terminate, tscore)
     return _launch_scan(1, "sw_scan", Q, row_valid, R, col_valid, mat,
-                        gap_open, gap_ext, terminate, tscore, device)
+                        gap_open, gap_ext, terminate, tscore, device, 0)
 
 
 def sw_scan2(Q, row_valid, R, col_valid, mat, gap_open: int, gap_ext: int,
@@ -558,7 +579,8 @@ def sw_fused2(buf, mat, B: int, lq: int, lr: int, gap_open: int,
 def sw_score_batch(query, qlen, ref, rlen, mat, gap_open: int,
                    gap_ext: int, terminate: bool = False, tscore=None):
     """sw_jax.sw_score_batch contract (masks built from qlen / rlen): the
-    plain twin on CPU tensors, the sw_scan kernel on CUDA tensors."""
+    plain twin on CPU tensors, the sw_scan kernel (reading the ref chars
+    by take_along_axis) on CUDA tensors."""
     device = _on_device(query, "query")
     if device.type == "cpu":
         return sw_score_batch_plain(query, qlen, ref, rlen, mat, gap_open,
@@ -568,9 +590,9 @@ def sw_score_batch(query, qlen, ref, rlen, mat, gap_open: int,
     row_valid = torch.arange(Lq, device=device)[None, :] < qlen[:, None]
     col_valid = torch.arange(Lr, device=device)[None, :] \
         < rlen.to(torch.int32)[:, None]
-    best, end_ref, end_read = sw_scan(
-        query.contiguous(), row_valid, ref.contiguous(), col_valid, mat,
-        gap_open, gap_ext, terminate, tscore)
+    best, end_ref, end_read = _launch_scan(
+        1, "sw_scan", query.contiguous(), row_valid, ref.contiguous(),
+        col_valid, mat, gap_open, gap_ext, terminate, tscore, device, 1)
     # sw_score_batch starts end_read at qlen-1 (the scan at the last
     # valid row): the two differ only where nothing scored
     return best, end_ref, torch.where(end_ref >= 0, end_read, qlen - 1)

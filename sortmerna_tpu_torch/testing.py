@@ -195,6 +195,27 @@ def pack_block(Q, R, ql, rl, minimal) -> np.ndarray:
 # (where F from Hpre and F from H part ways), and zero (ties everywhere).
 EDGE_GAPS = ((5, 2), (1, 3), (0, 0))
 
+# The odd codes of the scan contract: chars outside 0..4, on both sides of
+# it, where the JAX package's gathers wrap, clamp or fill.
+ODD_CODES = (-7, 16)            # low, high (exclusive)
+
+
+def _sprinkle(rng, a: np.ndarray, share: float, lo: int, hi: int) -> None:
+    """A share of a's entries replaced, in place, by codes drawn from
+    lo..hi-1."""
+    hit = rng.random(a.shape) < share
+    a[hit] = rng.integers(lo, hi, int(hit.sum()))
+
+
+def odd_tiles(rng, B: int, Lq: int, Lr: int):
+    """Scan-contract tiles (``scan_tiles``) with a fifth of the query and
+    ref chars replaced by codes in -7..15.  Returns Q, row_valid, R,
+    col_valid, qlen, rlen (numpy)."""
+    Q, rv, R, cv, qlen, rlen = scan_tiles(rng, B, Lq, Lr)
+    _sprinkle(rng, Q, 0.2, *ODD_CODES)
+    _sprinkle(rng, R, 0.2, *ODD_CODES)
+    return Q, rv, R, cv, qlen.astype(np.int32), rlen.astype(np.int32)
+
 
 def _edge_chars(rng, B: int, Lq: int, Lr: int, top: int):
     """Q, R chars in 0..top-1 for the edge inputs: every other pair holds
@@ -229,13 +250,14 @@ def _edge_lengths(B: int, L: int) -> np.ndarray:
     return 1 + np.arange(B) * L // B
 
 
-def edge_tiles(rng, B: int, Lq: int, Lr: int):
+def edge_tiles(rng, B: int, Lq: int, Lr: int, odd: bool = False):
     """Scan-contract tiles on which a wavefront kernel is likeliest to go
     wrong: query lengths spread from 1 to Lq (``_edge_lengths``), ref
     lengths from 1 to Lr in shuffled order, tie-heavy low-entropy pairs
     (``_edge_chars``), and in one pair of five holes in the row mask
-    (invalid rows inside the span still feed the gap chain).  Returns Q,
-    row_valid, R, col_valid (numpy)."""
+    (invalid rows inside the span still feed the gap chain).  ``odd``:
+    also 5% of the query and ref chars replaced by codes in -7..15 (v1's
+    odd chars).  Returns Q, row_valid, R, col_valid (numpy)."""
     Q, R = _edge_chars(rng, B, Lq, Lr, 5)
     qlen = _edge_lengths(B, Lq)
     rlen = rng.permutation(_edge_lengths(B, Lr))
@@ -243,6 +265,9 @@ def edge_tiles(rng, B: int, Lq: int, Lr: int):
     cv = np.arange(Lr)[None] < rlen[:, None]
     holes = np.arange(B) % 5 == 4
     rv[holes] &= rng.random((int(holes.sum()), Lq)) < 0.85
+    if odd:
+        _sprinkle(rng, Q, 0.05, *ODD_CODES)
+        _sprinkle(rng, R, 0.05, *ODD_CODES)
     return Q.astype(np.int32), rv, R.astype(np.int32), cv
 
 
@@ -255,15 +280,20 @@ def edge_tscore(rng, best) -> np.ndarray:
         .astype(np.int32)
 
 
-def edge_block(rng, B: int, lq: int, lr: int) -> np.ndarray:
+def edge_block(rng, B: int, lq: int, lr: int,
+               odd: bool = False) -> np.ndarray:
     """A packed sw_fused block of edge inputs: read lengths spread from 1
     to lq (``_edge_lengths``), ref lengths read length + 0..40 (capped at
     the tile), chars 0..4 (N included), tie-heavy low-entropy pairs, and
-    minimal 1..40 so most pairs run the begin pass."""
+    minimal 1..40 so most pairs run the begin pass.  ``odd``: also 5% of
+    the chars replaced by nibbles 0..15."""
     Q, R = _edge_chars(rng, B, lq, lr, 5)
     ql = _edge_lengths(B, lq)
     rl = (ql + rng.integers(0, 41, B)).clip(max=lr)
     minimal = rng.integers(1, 41, B)
+    if odd:
+        _sprinkle(rng, Q, 0.05, 0, 16)
+        _sprinkle(rng, R, 0.05, 0, 16)
     return pack_block(Q, R, ql, rl, minimal)
 
 

@@ -2,9 +2,11 @@
 
 Int32-exact (the seed probe: the same arrays in the same order), at small
 shapes that reach both storage paths of the warp-per-pair kernels (rows in
-registers for Lq <= 1024, in global scratch above), the odd inputs of v2
-and the edge inputs of
-``testing.edge_tiles`` / ``edge_block``.  Every test
+registers for Lq <= 1024, in global scratch above), query and ref codes
+in -7..15 (``testing.odd_tiles``), the odd inputs of v2 and the edge
+inputs of ``testing.edge_tiles`` / ``edge_block`` (with v1's odd chars for
+the v1 entries).  While working on csrc/sw_scan.cu or csrc/sw_wave.cuh,
+``-k "scan or fused"`` runs the SW kernels' tests alone.  Every test
 is marked ``cuda`` and skips without a GPU.  The JAX package is not
 needed, so on a machine without JAX run them past the suite's conftest:
 
@@ -58,8 +60,92 @@ def test_sw_scan_kernel_matches_plain(cuda, shape, terminate):
     _same(got, K.sw_scan_plain(Q, rv, R, cv, mat, 5, 2, terminate, ts))
 
 
+@pytest.mark.parametrize("shape", [(1024, 256, 256), (512, 2048, 128)])
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan_kernel_matches_plain_on_odd_codes(cuda, shape, terminate):
+    """Query and ref codes in -7..15, on both storage paths."""
+    B, Lq, Lr = shape
+    rng = np.random.default_rng(B + Lq + Lr + terminate + 1)
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
+                    for a in testing.odd_tiles(rng, B, Lq, Lr)[:4])
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = K.sw_scan_plain(Q, rv, R, cv, mat, 5, 2, False, None)[0] \
+        if terminate else None
+    got = K.sw_scan(Q, rv, R, cv, mat, 5, 2, terminate, ts)
+    torch.cuda.synchronize()
+    _same(got, K.sw_scan_plain(Q, rv, R, cv, mat, 5, 2, terminate, ts))
+
+
+@pytest.mark.parametrize("shape", [(1024, 256, 256), (512, 2048, 128)])
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_score_batch_kernel_matches_plain(cuda, shape, terminate):
+    """sw_score_batch through the v1 kernel (the ref chars read by
+    take_along_axis) against its plain twin, codes in -7..15."""
+    B, Lq, Lr = shape
+    rng = np.random.default_rng(B + Lq + Lr + terminate + 2)
+    Q, _, R, _, qlen, rlen = testing.odd_tiles(rng, B, Lq, Lr)
+    Q, R, qlen, rlen = (torch.from_numpy(a).to(cuda)
+                        for a in (Q, R, qlen, rlen))
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = K.sw_score_batch_plain(Q, qlen, R, rlen, mat, 5, 2)[0] \
+        if terminate else None
+    before = K.LAUNCHES["sw_scan"]
+    got = K.sw_score_batch(Q, qlen, R, rlen, mat, 5, 2, terminate, ts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sw_scan"] == before + 1
+    _same(got, K.sw_score_batch_plain(Q, qlen, R, rlen, mat, 5, 2,
+                                      terminate, ts))
+
+
+@pytest.mark.parametrize("shape", [(4096, 256, 256), (1024, 1024, 256),
+                                   (1024, 2048, 160)])
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan_kernel_matches_plain_on_edge_inputs(cuda, shape, gaps,
+                                                     terminate):
+    """testing.edge_tiles with v1's odd chars (query lengths 1..Lq in one
+    launch, tie-heavy pairs, holes in the row mask, codes in -7..15), go <
+    ge and zero gaps, a tscore below the forward best; Lq = 2048 takes the
+    rows-in-scratch path."""
+    B, Lq, Lr = shape
+    go, ge = gaps
+    rng = np.random.default_rng(Lq + 10 * go + ge + terminate + 3)
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
+                    for a in testing.edge_tiles(rng, B, Lq, Lr, odd=True))
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = None
+    if terminate:
+        best = K.sw_scan_plain(Q, rv, R, cv, mat, go, ge, False, None)[0]
+        ts = torch.from_numpy(testing.edge_tscore(rng, best.cpu().numpy())) \
+            .to(cuda)
+    got = K.sw_scan(Q, rv, R, cv, mat, go, ge, terminate, ts)
+    torch.cuda.synchronize()
+    _same(got, K.sw_scan_plain(Q, rv, R, cv, mat, go, ge, terminate, ts))
+
+
+@pytest.mark.parametrize("shape", [(4096, 256, 256), (1024, 1024, 256),
+                                   (1024, 2048, 256)])
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+def test_sw_fused_kernel_matches_plain_on_edge_blocks(cuda, shape, gaps):
+    """testing.edge_block with nibbles 0..15: read lengths 1..lq in one
+    launch, tie-heavy pairs, most pairs through the begin pass, at each
+    edge gap pair."""
+    B, lq, lr = shape
+    go, ge = gaps
+    buf = torch.from_numpy(testing.edge_block(
+        np.random.default_rng(lq + 10 * go + ge + 4), B, lq, lr,
+        odd=True)).to(cuda)
+    mat = torch.from_numpy(MAT).to(cuda)
+    before = K.LAUNCHES["sw_fused"]
+    got = K.sw_fused(buf, mat, B, lq, lr, go, ge)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sw_fused"] == before + 1
+    _same(got, K.sw_fused_plain(buf, mat, B, lq, lr, go, ge))
+
+
 @pytest.mark.parametrize("shape", [(256, 256, 256), (64, 512, 512),
-                                   (16, 2048, 1024)])
+                                   (16, 2048, 1024), (4096, 256, 256),
+                                   (64, 1024, 512), (64, 1056, 256)])
 def test_sw_fused_kernel_matches_plain(cuda, shape):
     B, lq, lr = shape
     rng = np.random.default_rng(sum(shape))
@@ -68,6 +154,23 @@ def test_sw_fused_kernel_matches_plain(cuda, shape):
     got = K.sw_fused(buf, mat, B, lq, lr, 5, 2)
     torch.cuda.synchronize()
     _same(got, K.sw_fused_plain(buf, mat, B, lq, lr, 5, 2))
+
+
+@pytest.mark.parametrize("shape", [(1024, 256, 256), (512, 2048, 128)])
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan2_kernel_matches_plain_on_odd_codes(cuda, shape, terminate):
+    """Query and ref codes in -7..15 (negative query codes wrap), on both
+    storage paths."""
+    B, Lq, Lr = shape
+    rng = np.random.default_rng(B + Lq + Lr + terminate + 5)
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
+                    for a in testing.odd_tiles(rng, B, Lq, Lr)[:4])
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = K.sw_scan2_plain(Q, rv, R, cv, mat, 5, 2, False, None)[0] \
+        if terminate else None
+    got = K.sw_scan2(Q, rv, R, cv, mat, 5, 2, terminate, ts)
+    torch.cuda.synchronize()
+    _same(got, K.sw_scan2_plain(Q, rv, R, cv, mat, 5, 2, terminate, ts))
 
 
 @pytest.mark.parametrize("shape", [(512, 256, 256), (1024, 64, 136),
@@ -157,6 +260,15 @@ def test_sw_fused2_kernel_matches_plain_on_edge_blocks(cuda, lq, gaps):
     got = K.sw_fused2(buf, mat, B, lq, lr, go, ge)
     torch.cuda.synchronize()
     _same(got, K.sw_fused2_plain(buf, mat, B, lq, lr, go, ge))
+
+
+def test_sw_scratch_only_for_tiles_over_1024_rows(cuda):
+    """v1 sizes its scratch as v2 does (one formula, csrc/sw_wave.cuh)."""
+    lib = K.load_library("sw_scan")
+    assert lib.smr_sw_scratch_ints(4096, 256) == 0
+    assert lib.smr_sw_scratch_ints(4096, 1024) == 0
+    assert lib.smr_sw_scratch_ints(64, 1056) == 3 * 1056 * 64
+    assert lib.smr_sw_scratch_ints(64, 1030) == 3 * 1056 * 64
 
 
 def test_sw2_scratch_only_for_tiles_over_1024_rows(cuda):

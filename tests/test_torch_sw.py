@@ -27,20 +27,32 @@ from sortmerna_tpu_torch.ops.sw_torch import TorchSwBackend  # noqa: E402
 MAT = scoring_matrix_5x5(2, -3, 0).astype(np.int32)
 
 
-def _jax_scan(Q, rv, R, cv, terminate, ts, pallas=False):
+def _jax_scan(Q, rv, R, cv, terminate, ts, pallas=False, gaps=(5, 2)):
     fn = sw_scan_pallas if pallas else sw_jax._sw_scan
     kw = {"interpret": True} if pallas else {}
     out = fn(jnp.asarray(Q), jnp.asarray(rv), jnp.asarray(R),
-             jnp.asarray(cv), jnp.asarray(MAT), 5, 2, terminate,
+             jnp.asarray(cv), jnp.asarray(MAT), *gaps, terminate,
              None if ts is None else jnp.asarray(ts), **kw)
     return [np.asarray(o) for o in out]
 
 
-def _torch_scan(Q, rv, R, cv, terminate, ts):
+def _torch_scan(Q, rv, R, cv, terminate, ts, gaps=(5, 2)):
     t = torch.from_numpy
-    out = K.sw_scan_plain(t(Q), t(rv), t(R), t(cv), t(MAT), 5, 2,
+    out = K.sw_scan_plain(t(Q), t(rv), t(R), t(cv), t(MAT), *gaps,
                           terminate, None if ts is None else t(ts))
     return [o.numpy() for o in out]
+
+
+def _where_chain(R):
+    """The ref chars as _sw_scan reads them: 0..3 as they are, anything
+    else profile 4.  sw_scan_pallas's select chain falls through to
+    profile 0 instead, so it is held on these chars, on which the two
+    agree."""
+    return np.where((R >= 0) & (R < 4), R, 4).astype(np.int32)
+
+
+def _differs(got, want):
+    return not all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
 def _assert_same(got, want):
@@ -77,6 +89,64 @@ def test_scan_plain_wide_tile_three_reduction_tiebreak(terminate):
         else None
     _assert_same(_torch_scan(Q, rv, R, cv, terminate, ts),
                  _jax_scan(Q, rv, R, cv, terminate, ts))
+
+
+@pytest.mark.parametrize("terminate", [False, True])
+def test_scan_plain_matches_jax_on_odd_codes(terminate):
+    """Query and ref chars in -7..15: a query char reads the profile row
+    of mat.T[Q] (negative codes wrap once, then clamp), a ref char the
+    where-chain's; held against _sw_scan and, on the where-chain's image
+    of the ref chars, the interpreted Pallas kernel."""
+    rng = np.random.default_rng(60 + terminate)
+    Q, rv, R, cv, _, _ = testing.odd_tiles(rng, 64, 24, 32)
+    ts = _jax_scan(Q, rv, R, cv, False, None)[0].copy() if terminate \
+        else None
+    want = _jax_scan(Q, rv, R, cv, terminate, ts)
+    got = _torch_scan(Q, rv, R, cv, terminate, ts)
+    _assert_same(got, want)
+    _assert_same(got, _jax_scan(Q, rv, _where_chain(R), cv, terminate, ts,
+                                pallas=True))
+    # the odd query codes matter: clamped to 0..4 they give another result
+    assert _differs(_torch_scan(np.clip(Q, 0, 4), rv, R, cv, terminate, ts),
+                    want)
+
+
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+@pytest.mark.parametrize("terminate", [False, True])
+def test_scan_plain_matches_jax_on_edge_inputs(gaps, terminate):
+    """testing.edge_tiles with v1's odd chars (query lengths 1..Lq in one
+    block, tie-heavy pairs, holes in the row mask, chars in -7..15) at
+    each edge gap pair, in terminate mode at a tscore below the forward
+    best; the same inputs hold the CUDA kernel on the card."""
+    rng = np.random.default_rng(300 + 10 * gaps[0] + gaps[1] + terminate)
+    Q, rv, R, cv = testing.edge_tiles(rng, 128, 72, 80, odd=True)
+    fw_best = _jax_scan(Q, rv, R, cv, False, None, gaps=gaps)[0]
+    ts = testing.edge_tscore(rng, fw_best) if terminate else None
+    want = _jax_scan(Q, rv, R, cv, terminate, ts, gaps=gaps)
+    got = _torch_scan(Q, rv, R, cv, terminate, ts, gaps)
+    _assert_same(got, want)
+    _assert_same(got, _jax_scan(Q, rv, _where_chain(R), cv, terminate, ts,
+                                pallas=True, gaps=gaps))
+    assert (want[1] >= 0).sum() > 100
+    if terminate:               # some scans stopped before their best
+        assert (want[0] < fw_best).sum() > 5
+
+
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+def test_fused_plain_matches_sw_fused_call_on_edge_blocks(gaps):
+    """testing.edge_block with nibbles 0..15 (read lengths 1..lq in one
+    block, tie-heavy pairs, most pairs through the begin pass) at each
+    edge gap pair."""
+    go, ge = gaps
+    B, lq, lr = 128, 64, 96
+    buf = testing.edge_block(np.random.default_rng(400 + 10 * go + ge),
+                             B, lq, lr, odd=True)
+    want = np.asarray(sw_jax.sw_fused_call(
+        jnp.asarray(buf), jnp.asarray(MAT), B, lq, lr, go, ge))
+    got = K.sw_fused_plain(torch.from_numpy(buf), torch.from_numpy(MAT),
+                           B, lq, lr, go, ge).numpy()
+    assert np.array_equal(got, want)
+    assert (want[1] >= 0).sum() > 40
 
 
 @pytest.mark.parametrize("shape", [(64, 256, 256), (32, 512, 256),
@@ -117,6 +187,33 @@ def test_score_batch_plain_matches_sw_score_batch(terminate):
                                  2, terminate=terminate,
                                  tscore=None if ts is None else t(ts))
     _assert_same([g.numpy() for g in got], [np.asarray(w) for w in want])
+
+
+def _score_batch(fn, Q, qlen, R, rlen, terminate, ts):
+    conv = jnp.asarray if fn is sw_jax.sw_score_batch else torch.from_numpy
+    out = fn(conv(Q), conv(qlen), conv(R), conv(rlen), conv(MAT), 5, 2,
+             terminate=terminate, tscore=None if ts is None else conv(ts))
+    return [np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("terminate", [False, True])
+def test_score_batch_plain_matches_sw_score_batch_on_odd_codes(terminate):
+    """Query and ref chars in -7..15: the query reads mat.T[Q]'s row, the
+    ref take_along_axis's (-5..-1 wrap; any other code outside 0..4 reads
+    INT32_MIN, a valid column that scores nothing on its diagonal)."""
+    rng = np.random.default_rng(70 + terminate)
+    Q, _, R, _, qlen, rlen = testing.odd_tiles(rng, 48, 24, 32)
+    ts = _score_batch(sw_jax.sw_score_batch, Q, qlen, R, rlen, False,
+                      None)[0].copy() if terminate else None
+    want = _score_batch(sw_jax.sw_score_batch, Q, qlen, R, rlen, terminate,
+                        ts)
+    got = _score_batch(K.sw_score_batch_plain, Q, qlen, R, rlen, terminate,
+                       ts)
+    _assert_same(got, want)
+    # the odd ref codes matter: clamped to 0..4 they give another result
+    assert _differs(_score_batch(K.sw_score_batch_plain, Q, qlen,
+                                 np.clip(R, 0, 4), rlen, terminate, ts),
+                    want)
 
 
 def _coord_jobs(seed, n):

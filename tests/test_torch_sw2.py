@@ -108,6 +108,21 @@ def test_scan2_plain_matches_pallas2_on_odd_inputs(terminate):
 
 
 @pytest.mark.parametrize("terminate", [False, True])
+def test_scan2_plain_matches_pallas2_on_odd_codes(terminate):
+    """Query and ref chars in -7..15: a query char reads the profile row
+    of mat.T[Q] (negative codes wrap once, then clamp: -1 reads profile
+    4), a ref char v2's read (negative as 0, 5 and above invalid)."""
+    rng = np.random.default_rng(31 + terminate)
+    Q, rv, R, cv, _, _ = testing.odd_tiles(rng, 512, 12, 24)
+    ts = _forward_best(Q, rv, R, cv) if terminate else None
+    want = _pallas2(Q, rv, R, cv, terminate, ts)
+    _assert_same(_plain2(Q, rv, R, cv, terminate, ts), want)
+    # the odd query codes matter: clamped to 0..4 they give another result
+    got = _plain2(np.clip(Q, 0, 4), rv, R, cv, terminate, ts)
+    assert not all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("terminate", [False, True])
 def test_scan2_plain_wide_tile_three_reduction_tiebreak(terminate):
     """Lq = 4096 is past the packed-key limit ((Lq << s) >= 2**24), so v2
     takes its 3-reduction tie-break; held against the XLA scan (the
