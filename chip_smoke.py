@@ -11,7 +11,8 @@ printed):
    native host library and the ALP oracle, compiled from this checkout in
    parallel; the log quotes ptxas's registers and spill bytes for each
    instantiation of both SW sources (csrc/sw_scan.cu and csrc/sw_scan2.cu,
-   which share the wavefront core of csrc/sw_wave.cuh);
+   which share the wavefront core of csrc/sw_wave.cuh) and of both probe
+   kernels (csrc/seed_probe.cu);
 3. parity: every SW kernel against its plain PyTorch version on the card,
    bit-exact (int32 equality): sw_scan (4096 x 256 x 256 and 64 x 4096 x
    256, both terminate modes), sw_fused (4096 x 256 x 256, 64 x 2048 x
@@ -30,7 +31,13 @@ printed):
    (plain versions) and on ``cuda``; the reports must be byte-identical;
 6. probe: seed_probe and seed_compact against their plain versions on
    65,536 windows cut from the reads (a quarter with 1-2 point edits)
-   against the workload's index part, bit-exact, then timed;
+   against the workload's index part and on the edge inputs of
+   ``testing.probe_edges`` (chains at and past MAX_PROBES, wrapping or
+   without EMPTY; groups at the caps; 31 to 376 ids a window; clamped
+   r_ids starts, gates, modes, repeated and wrapped ids), full_search off
+   and on, bit-exact; then the device tables' bytes, and both kernels
+   timed (seed_compact beside the PyTorch masked select, its
+   ``library_ms``);
 7. align: the align task at full size through ``sortmerna_tpu_torch.cli``
    on ``cuda`` -- a synthetic 16S-like database of 4,000 sequences of
    1,300-1,600 nt (about 6 Mnt, 40 families, members about 8% apart) and
@@ -51,7 +58,8 @@ printed):
    through ``TorchSwBackend.batch`` -> the ``sw_scan`` kernel.
 
 Before the last line it prints the card line and one JSON line with the
-six kernels (launches on their path, ms, plain ms, bound); the last line
+six kernels (launches on their path, ms, plain ms, bound, library ms);
+the last line
 is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
 chiprun_out/chip_smoke/.  It takes about five minutes.
 
@@ -108,16 +116,29 @@ def max_sm_clock_hz() -> float:
     return float(mhz) * 1e6
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, graph: bool = False) -> float:
+    """Device ms a call of ``fn``, CUDA events around ``iters`` calls after
+    ``warmup``.  ``graph``: the calls captured in a CUDA graph and
+    replayed, so that a launch shorter than its host-side wrapper is timed
+    on the device, not on the host."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(iters):
-        fn()
+    if graph:
+        g.replay()
+    else:
+        for _ in range(iters):
+            fn()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
@@ -178,7 +199,8 @@ def ptxas_report(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d(sw_\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(r"\d((?:sw|seed)_\w+?_kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
             name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                     if k else m.group(1))
             spill = 0
@@ -240,11 +262,14 @@ def phase_build():
         + f" ({', '.join(stems)}); ptxas report in "
         "chiprun_out/chip_smoke/ptxas.txt")
     report = {}
-    for stem in ("sw_scan", "sw_scan2"):
+    for stem, note in (("sw_scan", "<0> keeps rows in scratch"),
+                       ("sw_scan2", "<0> keeps rows in scratch"),
+                       ("seed_probe", "seed_probe_kernel<NP>: NP probes a "
+                        "lane, 4 at pw 9")):
         report[stem] = ptxas_report(sw_kernels.build_log(stem).read_text())
-        log(f"ptxas {stem}.cu (registers, spill bytes; <0> keeps rows in "
-            "scratch): " + ", ".join(f"{n} {r} regs {s} spill"
-                                     for n, r, s in report[stem]))
+        log(f"ptxas {stem}.cu (registers, spill bytes; {note}): "
+            + ", ".join(f"{n} {r} regs {s} spill"
+                        for n, r, s in report[stem]))
     return report
 
 
@@ -448,40 +473,63 @@ def load_part(db):
                          seed_win_len=opts.seed_win_len).parts[0]
 
 
-def read_windows(reads, L, n, seed):
-    """``n`` windows of L nt cut from the reads (starts every L/2 nt), a
-    quarter of them with 1-2 point edits, as packed (L/2)-mer halves."""
-    import numpy as np
-    pw = L // 2
-    code = np.zeros(256, np.int64)
-    code[list(b"ACGT")] = [0, 1, 2, 3]
-    wins = []
-    with open(reads, "rb") as f:
-        for line in f:
-            if line.startswith(b">"):
-                continue
-            e = code[np.frombuffer(line.strip(), np.uint8)]
-            wins += [e[st:st + L] for st in range(0, len(e) - L + 1, pw)]
-            if len(wins) >= n:
-                break
-    w = np.stack(wins[:n])
-    rng = np.random.default_rng(seed)
-    for _ in range(2):
-        rows = np.flatnonzero(rng.random(n) < 0.125)
-        w[rows, rng.integers(0, L, len(rows))] = rng.integers(0, 4, len(rows))
-    weights = 4 ** np.arange(pw - 1, -1, -1)
-    return w[:, :pw] @ weights, w[:, pw:] @ weights
+def table_bytes(tabs):
+    """Bytes of a searcher's device tables: keys, values, r_ids and the
+    home bitmaps."""
+    def size(suffix):
+        return sum(t.numel() * t.element_size() for k, t in tabs.items()
+                   if k.endswith(suffix))
+    return dict(keys=size("_keys"), values=size("_val"),
+                r_ids=size("r_ids"), home=size("_home"))
+
+
+def phase_probe_edges():
+    """Both probe kernels on the edge inputs of ``testing.probe_edges``,
+    full_search off and on, against the plain versions."""
+    import torch
+    from sortmerna_tpu_torch import testing as T
+    from sortmerna_tpu_torch.ops import seed_search as S
+    dev = torch.device("cuda")
+    for c in T.probe_edges():
+        host = {k: torch.from_numpy(v) for k, v in c["tabs"].items()}
+        tabs = S.with_home_bits({k: v.to(dev) for k, v in host.items()})
+        w1, w2 = (torch.from_numpy(c[k].astype("int32")) for k in ("w1", "w2"))
+        for full_search in (False, True):
+            args = (c["pw"], full_search, c["minoccur"])
+            count, ids = S.seed_probe(tabs, w1.to(dev), w2.to(dev), *args)
+            win, got, total = S.seed_compact(count, ids, c["pw"])
+            torch.cuda.synchronize()
+            want = S.probe_windows_plain(host, w1.long(), w2.long(), *args)
+            equal_or_raise(f"seed_probe edges {c['name']} "
+                           f"full_search={full_search}",
+                           S.seed_compact_plain(count, ids), want)
+            n = int(total[0])
+            equal_or_raise(f"seed_compact edges {c['name']} "
+                           f"full_search={full_search}",
+                           (win[:n], got[:n]), want)
+            pairs = set(zip(want[0].tolist(), want[1].tolist()))
+            if not (all(p in pairs for p in c["present"])
+                    and not any(p in pairs for p in c["absent"])):
+                raise AssertionError(f"probe edges {c['name']}: the case's "
+                                     "expected pairs do not hold")
+        log(f"parity seed_probe/seed_compact edge inputs {c['name']} "
+            f"({len(c['w1'])} windows, tables of "
+            f"{len(c['tabs']['fx_keys'])} slots), full_search off and on: "
+            "bit-exact")
 
 
 def phase_probe(db, reads):
     """seed_probe / seed_compact against their plain versions on one full
-    batch of windows, then timed, with the bytes their work needs."""
+    batch of windows and on the edge inputs, then timed, with the bytes
+    their work needs."""
     import torch
     from sortmerna_tpu_torch.ops import seed_search as S
+    from sortmerna_tpu_torch.testing import read_windows
     dev = torch.device("cuda")
     part = load_part(db)
     L = getattr(part, "seed_win_len", 18)
     pw = L // 2
+    K = S.ids_per_window(pw)
     w1n, w2n = read_windows(reads, L, N_WINDOWS, seed=11)
     w1 = torch.from_numpy(w1n).to(dev, torch.int32)
     w2 = torch.from_numpy(w2n).to(dev, torch.int32)
@@ -489,28 +537,35 @@ def phase_probe(db, reads):
         searcher = S.DeviceSeedSearcher(part, 0, full_search, device=dev)
         tabs = searcher.tabs
         count, ids = S.seed_probe(tabs, w1, w2, pw, full_search, 0)
-        win, got = S.seed_compact(count, ids, pw)
+        win, got, total = S.seed_compact(count, ids, pw)
         torch.cuda.synchronize()
         want = S.probe_windows_plain(tabs, w1.long(), w2.long(), pw,
                                      full_search, 0)
         # seed_probe's counts and ids, read through the plain compaction
         equal_or_raise(f"seed_probe full_search={full_search}",
                        S.seed_compact_plain(count, ids), want)
+        n = int(total[0])
         equal_or_raise(f"seed_compact full_search={full_search}",
-                       (win, got), want)
+                       (win[:n], got[:n]), want)
         log(f"parity seed_probe/seed_compact {N_WINDOWS} windows "
             f"(L={L}) full_search={full_search}: bit-exact, "
             f"{len(want[0])} (window, id) pairs, "
             f"{int((count > 0).sum())} windows with a hit")
+    phase_probe_edges()
 
-    # timing, default search (full_search off, minoccur 0)
+    # timing, default search (full_search off, minoccur 0), into the
+    # searcher's persistent buffers as the path does
     searcher = S.DeviceSeedSearcher(part, 0, False, device=dev)
     tabs = searcher.tabs
-    count, ids = S.seed_probe(tabs, w1, w2, pw, False, 0)
-    ends = torch.cumsum(count, 0)
-    pairs = int(ends[-1])
-    win = torch.empty(pairs, dtype=torch.int32, device=dev)
-    out = torch.empty(pairs, dtype=torch.int32, device=dev)
+    tb = table_bytes(tabs)
+    log("device tables: " + ", ".join(f"{k} {v / 1e6:.1f} MB"
+                                      for k, v in tb.items())
+        + f"; keys, values and r_ids together "
+        f"{(tb['keys'] + tb['values'] + tb['r_ids']) / 1e6:.1f} MB against "
+        "the 50 MB L2")
+    bufs = searcher._buffers(N_WINDOWS)
+    count, ids = S.seed_probe(tabs, w1, w2, pw, False, 0, out=bufs["probe"])
+    pairs = int(count.sum())
     # the lookups these windows need: the two 0-error keys, and in the
     # other mode (no 0-error hit behind an open gate) the 4pw other
     # substitutions, pw deletions and 4pw insertions of each subsearch
@@ -526,22 +581,35 @@ def phase_probe(db, reads):
     res = {}
     nbytes = 8 * N_WINDOWS + SECTOR * lookups + 4 * N_WINDOWS + 4 * pairs
     res["seed_probe"] = dict(
-        ms=cuda_ms(lambda: S.seed_probe(tabs, w1, w2, pw, False, 0), 20),
+        ms=cuda_ms(lambda: S.seed_probe(tabs, w1, w2, pw, False, 0,
+                                        out=bufs["probe"]), 20),
         plain_ms=cuda_ms(lambda: S.probe_windows_plain(
             tabs, w1.long(), w2.long(), pw, False, 0), 2, warmup=1),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        lookups=lookups, pairs=pairs, windows=N_WINDOWS)
-    nbytes = 4 * N_WINDOWS + 8 * N_WINDOWS + 4 * pairs + 8 * pairs
+        library_ms=None, lookups=lookups, pairs=pairs, windows=N_WINDOWS,
+        table_bytes=tb)
+    # seed_compact: the counts in, each kept id in, a pair and the total
+    # out (its time includes the scan of the counts)
+    nbytes = 4 * N_WINDOWS + 4 * pairs + 8 * pairs + 4
+
+    def library():
+        # the PyTorch route: a mask of each row's first count ids
+        mask = torch.arange(K, device=dev)[None, :] < count[:, None]
+        return ids[mask], mask.nonzero()
+
     res["seed_compact"] = dict(
-        ms=cuda_ms(lambda: S.compact_into(count, ends, ids, pw, win, out),
-                   50),
+        ms=cuda_ms(lambda: S.seed_compact(count, ids, pw,
+                                          out=bufs["compact"]), 50,
+                   graph=True),
         plain_ms=cuda_ms(lambda: S.seed_compact_plain(count, ids), 5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(library, 20),
         pairs=pairs, windows=N_WINDOWS)
     for k, v in res.items():
         log(f"timing {k} {N_WINDOWS} windows: {v['ms']:.4f} ms (plain "
-            f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms; "
-            f"{pairs} pairs"
+            f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms"
+            + (f", library {v['library_ms']:.4f} ms" if v["library_ms"]
+               else "") + f"; {pairs} pairs"
             + (f", {lookups} lookups)" if k == "seed_probe" else ")"))
     return res
 
@@ -637,7 +705,7 @@ def phase_align(top, db, reads, n_reads, tag, extra=(), env=None,
     hooks = {"sw_fused": (sw_torch, "sw_fused"),
              "sw_fused2": (sw_torch, "sw_fused2"),
              "seed_probe": (seed_search, "seed_probe"),
-             "seed_compact": (seed_search, "compact_into")}
+             "seed_compact": (seed_search, "seed_compact")}
     saved = {}
 
     def evented(fn):
@@ -880,8 +948,9 @@ def main() -> int:
             "max_abs_err": MAX_ABS_ERR.get(name),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            # no single PyTorch call computes SW or the window search
-            "library_ms": None,
+            # no single PyTorch call computes SW or the window search;
+            # the compaction's is a masked select (timed, never called)
+            "library_ms": t.get("library_ms"),
         })
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(card_line())

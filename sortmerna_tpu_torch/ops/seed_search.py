@@ -16,13 +16,18 @@ lanes), and the slot hash is index/hashtab.hash_u64's, bit for bit.
 
 A window batch goes through two kernels of csrc/seed_probe.cu:
 
-* ``seed_probe`` -- a warp per window: the probes, the expansions, the
-  sort and de-dup; it writes the window's count and its sorted ids to a
-  row of scratch;
-* ``seed_compact`` -- the (window, id) pairs at the offsets, an inclusive
-  prefix sum of the counts taken with ``torch.cumsum``.  The count is
-  known before the write, so the JAX package's cap-retry loop has no
-  counterpart.
+* ``seed_probe`` -- a warp per 4 windows (their 0-error lookups a lane
+  each, then every other-mode window's probes over all 32 lanes): the
+  probes, the expansions, the sort and de-dup; it writes the window's
+  count and its sorted ids to a row of scratch.  It reads each table's
+  home-slot bitmap (``with_home_bits``, a bit a slot, in L2) before the
+  table's keys, so a probe whose home slot is no key's home costs no
+  read of the keys;
+* ``seed_compact`` -- a thread per window: the offsets (a scan of the
+  counts, in the same launch), the (window, id) pairs at them, and the
+  total.  The output buffers hold the most a batch can give, so the JAX
+  package's cap-retry loop has no counterpart, and the host reads the
+  total only when it copies the pairs back.
 
 Their plain versions ``seed_probe_plain`` and ``seed_compact_plain``
 together make ``probe_windows_plain``, a line-by-line twin of
@@ -65,14 +70,19 @@ LAUNCHES = {"seed_probe": 0, "seed_compact": 0}
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    # w1, w2, counts, minoccur, 5 x (keys, vals, bits), r_ids, n_rids, NW,
-    # pw, full_search, out_count, scratch, stream
+    # w1, w2, counts, minoccur, 5 x (keys, vals, home bits, bits), r_ids,
+    # n_rids, NW, pw, full_search, out_count, scratch, stream
     "smr_seed_probe": (_CI, [_VP, _VP, _VP, _CLL]
-                       + [_VP, _VP, _CI] * 5
+                       + [_VP, _VP, _VP, _CI] * 5
                        + [_VP, _CI, _CI, _CI, _CI, _VP, _VP, _VP]),
-    # counts, inclusive cumsum, scratch, NW, pw, out_win, out_id, stream
-    "smr_seed_compact": (_CI, [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP]),
+    # count, scratch, NW, pw, state, out_win, out_id, total, stream
+    "smr_seed_compact": (_CI, [_VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP]),
+    # NW -> int64 words of seed_compact's state
+    "smr_seed_compact_state_words": (_CI, [_CI]),
 }
+
+# seed half-widths the kernel takes (the CLI's -L 8..26 gives 4..13)
+MIN_PW, MAX_PW = 4, 13
 
 
 def reset_launches() -> None:
@@ -308,17 +318,78 @@ def probe_windows_plain(tabs: Dict[str, torch.Tensor], w1, w2, pw: int,
 
 
 _TABLES = ("fx", "fp", "rx", "rp", "k19")
+# int32 values a slot of each table (0: a plain [size] vector)
+VAL_WIDTH = {"fx": 0, "fp": 2, "rx": 3, "rp": 2, "k19": 0}
 
 
 def _lib() -> ctypes.CDLL:
     return sw_kernels.load_library("seed_probe", SIGNATURES)
 
 
-def seed_probe(tabs, w1, w2, pw: int, full_search: bool, minoccur: int):
+def home_bits(keys):
+    """The home-slot bitmap of a table: bit h (bit h & 31 of int32 word
+    h >> 5) is set when some key's hash, its home slot, is h.  A key whose
+    home bit is clear is in no slot of the table.  int32 [ceil(size /
+    32)], on the keys' device."""
+    size = keys.shape[0]
+    h = torch.unique(hash_keys(keys[keys != -1], int(size).bit_length() - 1))
+    words = torch.zeros((size + 31) // 32, dtype=torch.int64,
+                        device=keys.device)
+    words.scatter_add_(0, h >> 5, torch.ones_like(h) << (h & 31))
+    return torch.where(words >= 1 << 31, words - (1 << 32), words) \
+        .to(torch.int32)
+
+
+def with_home_bits(tabs):
+    """``tabs`` with each table's home-slot bitmap (``<name>_home``), which
+    the seed_probe kernel reads before the table's keys."""
+    return dict(tabs, **{name + "_home": home_bits(tabs[name + "_keys"])
+                         for name in _TABLES})
+
+
+def _check_tables(tabs, pw: int, device) -> None:
+    """The tables as the kernel reads them: int64 keys of a power of two
+    >= 4 slots (32-byte aligned on the card), int32 value rows of the
+    table's width, int32 r_ids (at least one), int64 kmer_counts over every
+    pw-mer; on the card also each table's home bitmap (``with_home_bits``);
+    all contiguous on ``device``."""
+    if not MIN_PW <= pw <= MAX_PW:
+        raise ValueError(f"seed half-width {pw} is outside "
+                         f"{MIN_PW}..{MAX_PW}")
+    for k, t in tabs.items():
+        dtype = torch.int64 if k.endswith("_keys") or k == "kmer_counts" \
+            else torch.int32
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"table {k} must be a contiguous {dtype} "
+                             f"tensor on {device}")
+    for name in _TABLES:
+        keys, vals = tabs[name + "_keys"], tabs[name + "_val"]
+        size = keys.shape[0]
+        width = VAL_WIDTH[name]
+        want = (size, width) if width else (size,)
+        if keys.dim() != 1 or size < 4 or size & (size - 1) \
+                or tuple(vals.shape) != want \
+                or (device.type == "cuda" and keys.data_ptr() % 32):
+            raise ValueError(f"table {name}: keys must be a 32-byte aligned "
+                             f"power of two >= 4 slots, values {want}")
+        home = tabs.get(name + "_home")
+        if device.type == "cuda" and (
+                home is None or tuple(home.shape) != ((size + 31) // 32,)):
+            raise ValueError(f"table {name}: the kernel needs its home "
+                             "bitmap (with_home_bits)")
+    if tabs["r_ids"].dim() != 1 or tabs["r_ids"].shape[0] < 1 \
+            or tabs["kmer_counts"].shape != (1 << (2 * pw),):
+        raise ValueError("r_ids must hold at least one id, kmer_counts "
+                         f"one count for each {pw}-mer")
+
+
+def seed_probe(tabs, w1, w2, pw: int, full_search: bool, minoccur: int,
+               out=None):
     """int32 w1, w2 [NW] -> (count int32 [NW], ids int32 [NW,
     ids_per_window(pw)]; row w holds window w's ascending unique ids in
     its first count[w] columns): the seed_probe kernel on CUDA tensors,
-    seed_probe_plain on CPU tensors."""
+    into ``out`` = (count, ids) when given; seed_probe_plain on CPU
+    tensors."""
     device = sw_kernels._on_device(w1, "w1")
     NW = w1.shape[0]
     for name, t in (("w1", w1), ("w2", w2)):
@@ -326,23 +397,23 @@ def seed_probe(tabs, w1, w2, pw: int, full_search: bool, minoccur: int):
                 or tuple(t.shape) != (NW,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 [{NW}] "
                              f"tensor on {device}")
-    for k, t in tabs.items():
-        dtype = torch.int64 if k.endswith("_keys") or k == "kmer_counts" \
-            else torch.int32
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"table {k} must be a contiguous {dtype} "
-                             f"tensor on {device}")
+    _check_tables(tabs, pw, device)
     if device.type == "cpu":
         return seed_probe_plain(tabs, w1.long(), w2.long(), pw, full_search,
                                 minoccur)
-    count = torch.empty(NW, dtype=torch.int32, device=device)
-    ids = torch.empty((NW, ids_per_window(pw)), dtype=torch.int32,
-                      device=device)
+    K = ids_per_window(pw)
+    if out is None:
+        out = (torch.empty(NW, dtype=torch.int32, device=device),
+               torch.empty((NW, K), dtype=torch.int32, device=device))
+    count, ids = out
+    for name, t, shape in (("count", count, (NW,)), ("ids", ids, (NW, K))):
+        sw_kernels._check(t, name, torch.int32, shape, device)
     args = [w1.data_ptr(), w2.data_ptr(), tabs["kmer_counts"].data_ptr(),
             int(minoccur)]
     for name in _TABLES:
         keys = tabs[name + "_keys"]
         args += [keys.data_ptr(), tabs[name + "_val"].data_ptr(),
+                 tabs[name + "_home"].data_ptr(),
                  int(keys.shape[0]).bit_length() - 1]
     args += [tabs["r_ids"].data_ptr(), int(tabs["r_ids"].shape[0]), NW,
              int(pw), int(bool(full_search)), count.data_ptr(),
@@ -352,45 +423,64 @@ def seed_probe(tabs, w1, w2, pw: int, full_search: bool, minoccur: int):
     return count, ids
 
 
-def seed_compact(count, ids, pw: int):
-    """seed_probe's (count, ids) -> (win, id) int32 [total], windows
-    ascending: the seed_compact kernel on CUDA tensors, at offsets from
-    torch.cumsum of the counts; seed_compact_plain on CPU tensors."""
+def compact_state_words(NW: int) -> int:
+    """int64 words of seed_compact's state for NW windows."""
+    return int(_lib().smr_seed_compact_state_words(NW))
+
+
+def seed_compact(count, ids, pw: int, out=None):
+    """seed_probe's (count, ids) -> (win, id, total): the (window, id)
+    int32 pairs, windows ascending, in the first ``total`` entries of
+    ``win`` and ``id`` (``total`` an int32 [1] tensor on their device).
+    On CUDA tensors the seed_compact kernel, which scans the counts for
+    its offsets in the same launch, writes them into ``out`` = (win, id,
+    total, state) when given: int32 buffers of at least NW *
+    ids_per_window(pw) entries, the int32 [1] total and the kernel's int64
+    state (``compact_state_words(NW)``); on CPU tensors
+    seed_compact_plain gives exactly ``total``."""
     device = sw_kernels._on_device(count, "count")
     NW = count.shape[0]
-    if ids.shape != (NW, ids_per_window(pw)) or ids.device != device \
+    K = ids_per_window(pw)
+    if ids.shape != (NW, K) or ids.device != device \
             or ids.dtype != torch.int32 or count.dtype != torch.int32 \
             or not (ids.is_contiguous() and count.is_contiguous()):
         raise ValueError("seed_compact takes seed_probe's count and ids")
     if device.type == "cpu":
-        return seed_compact_plain(count, ids)
-    ends = torch.cumsum(count, 0)           # inclusive; int64
-    total = int(ends[-1]) if NW else 0
-    win = torch.empty(total, dtype=torch.int32, device=device)
-    out = torch.empty(total, dtype=torch.int32, device=device)
-    if total:
-        compact_into(count, ends, ids, pw, win, out)
-    return win, out
-
-
-def compact_into(count, ends, ids, pw: int, win, out) -> None:
-    """The seed_compact launch alone: window w's ids go to
-    ``[ends[w] - count[w], ends[w])`` of ``win`` / ``out``."""
+        win, got = seed_compact_plain(count, ids)
+        return win, got, torch.tensor([len(got)], dtype=torch.int32)
+    words = compact_state_words(NW)
+    if out is None:
+        out = (torch.empty(NW * K, dtype=torch.int32, device=device),
+               torch.empty(NW * K, dtype=torch.int32, device=device),
+               torch.empty(1, dtype=torch.int32, device=device),
+               torch.empty(words, dtype=torch.int64, device=device))
+    win, got, total, state = out
+    for name, t, n, dtype in (("win", win, NW * K, torch.int32),
+                              ("id", got, NW * K, torch.int32),
+                              ("total", total, 1, torch.int32),
+                              ("state", state, words, torch.int64)):
+        if t.device != device or t.dtype != dtype or t.dim() != 1 \
+                or t.shape[0] < n or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                             f"of >= {n} entries on {device}")
     err = _lib().smr_seed_compact(
-        count.data_ptr(), ends.data_ptr(), ids.data_ptr(),
-        count.shape[0], int(pw), win.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(count.device).cuda_stream)
+        count.data_ptr(), ids.data_ptr(), NW, int(pw), state.data_ptr(),
+        win.data_ptr(), got.data_ptr(), total.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
     sw_kernels._raise_on(err, "seed_compact")
     LAUNCHES["seed_compact"] += 1
+    return win, got, total
 
 
-def probe_windows(tabs, w1, w2, pw: int, full_search: bool, minoccur: int):
-    """(win, id) int64 of a window batch: seed_probe then seed_compact."""
+def probe_windows(tabs, w1, w2, pw: int, full_search: bool, minoccur: int,
+                  bufs=None):
+    """(win, id, total) of a window batch: seed_probe then seed_compact,
+    into ``bufs`` (the searcher's persistent buffers) when given."""
+    bufs = bufs or {}
     count, ids = seed_probe(tabs, w1.to(torch.int32).contiguous(),
                             w2.to(torch.int32).contiguous(), pw,
-                            full_search, minoccur)
-    win, ids = seed_compact(count, ids, pw)
-    return win.long(), ids.long()
+                            full_search, minoccur, out=bufs.get("probe"))
+    return seed_compact(count, ids, pw, out=bufs.get("compact"))
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +493,8 @@ class DeviceSeedSearcher:
 
     # windows per call: the plain version's [nw, 439] id matrix and the
     # kernel's scratch of the same size are the peak (115 MB int32 at
-    # 64K); bigger batches split, as in the JAX package
+    # 64K, as are each of the two output buffers); bigger batches split,
+    # as in the JAX package
     MAX_WINDOWS = 65536
 
     def __init__(self, part: IndexPart, minoccur: int = 0,
@@ -420,6 +511,7 @@ class DeviceSeedSearcher:
                     and int(part.r_pref_count.max()) > CAP_RDEL)):
             raise ProbeCapsExceeded(
                 "index group sizes exceed device probe caps")
+        self._bufs = None
         if self.device.type == "cuda":
             _lib()                      # build now: fail before any probe
 
@@ -430,7 +522,7 @@ class DeviceSeedSearcher:
             a = a.view(np.int64) if a.dtype == np.uint64 else a.astype(dtype)
             return torch.tensor(a, device=self.device)
 
-        self.tabs = {
+        self.tabs = with_home_bits({
             "fx_keys": put(part.f_exact_keys),
             "fx_val": put(part.f_exact_vals),
             "fp_keys": put(part.f_pref_keys),
@@ -447,7 +539,7 @@ class DeviceSeedSearcher:
             "r_ids": put(part.r_ids if len(part.r_ids)
                          else np.zeros(1, np.uint32)),
             "kmer_counts": put(part.kmer_counts, np.int64),
-        }
+        })
 
     def search_windows(self, w1: np.ndarray, w2: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -468,8 +560,32 @@ class DeviceSeedSearcher:
         if min(w1.min(), w2.min()) < 0 or max(w1.max(), w2.max()) >= hi:
             raise ValueError(f"window halves must be packed {self.pw}-mers "
                              f"in [0, {hi})")
-        win, ids = probe_windows(
+        win, ids, total = probe_windows(
             self.tabs, torch.from_numpy(w1).to(self.device),
             torch.from_numpy(w2).to(self.device), self.pw,
-            self.full_search, self.minoccur)
-        return win.cpu().numpy(), ids.cpu().numpy()
+            self.full_search, self.minoccur, self._buffers(nw))
+        n = int(total[0])               # waits for both kernels
+        return (win[:n].cpu().numpy().astype(np.int64),
+                ids[:n].cpu().numpy().astype(np.int64))
+
+    def _buffers(self, nw: int):
+        """The kernels' outputs for nw windows, views of buffers made once
+        at MAX_WINDOWS (none on cpu)."""
+        if self.device.type != "cuda":
+            return None
+        K = ids_per_window(self.pw)
+        if self._bufs is None:
+            def empty(*shape):
+                return torch.empty(shape, dtype=torch.int32,
+                                   device=self.device)
+            self._bufs = dict(
+                count=empty(self.MAX_WINDOWS),
+                ids=empty(self.MAX_WINDOWS, K),
+                win=empty(self.MAX_WINDOWS * K),
+                id=empty(self.MAX_WINDOWS * K), total=empty(1),
+                state=torch.empty(compact_state_words(self.MAX_WINDOWS),
+                                  dtype=torch.int64, device=self.device))
+        b = self._bufs
+        return {"probe": (b["count"][:nw], b["ids"][:nw]),
+                "compact": (b["win"][:nw * K], b["id"][:nw * K],
+                            b["total"], b["state"])}

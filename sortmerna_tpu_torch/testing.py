@@ -337,3 +337,443 @@ def read_outputs(out_dir: str, paths: Sequence[str] = ()) -> dict:
             keep.append(ln)
         got["aligned.log"] = "".join(keep)
     return got
+
+
+# ---------------------------------------------------------------------------
+# the device seed probe: windows and edge inputs
+
+
+def read_windows(reads: str, L: int, n: int, seed: int):
+    """``n`` windows of L nt cut from the FASTA ``reads`` (starts every L/2
+    nt), a quarter of them with 1-2 point edits, as int64 packed
+    (L/2)-mer halves w1, w2."""
+    pw = L // 2
+    code = np.zeros(256, np.int64)
+    code[list(b"ACGT")] = [0, 1, 2, 3]
+    wins = []
+    with open(reads, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                continue
+            e = code[np.frombuffer(line.strip(), np.uint8)]
+            wins += [e[st:st + L] for st in range(0, len(e) - L + 1, pw)]
+            if len(wins) >= n:
+                break
+    w = np.stack(wins[:n])
+    rng = np.random.default_rng(seed)
+    for _ in range(2):
+        rows = np.flatnonzero(rng.random(n) < 0.125)
+        w[rows, rng.integers(0, L, len(rows))] = rng.integers(0, 4, len(rows))
+    weights = 4 ** np.arange(pw - 1, -1, -1)
+    return w[:, :pw] @ weights, w[:, pw:] @ weights
+
+
+_EMPTY = -1                     # index/hashtab.EMPTY_KEY as int64
+_FILLER = 1 << 62               # filler keys: above every probe key
+
+
+class _EdgeTable:
+    """An open-addressing table of index/hashtab.py's layout (int64 keys,
+    EMPTY = -1; int32 value rows), written slot by slot."""
+
+    def __init__(self, bits: int, width: int):
+        from .index.hashtab import hash_u64
+        self._hash = hash_u64
+        self.bits, self.size = bits, 1 << bits
+        self.keys = np.full(self.size, _EMPTY, np.int64)
+        self.vals = np.zeros((self.size, width) if width else self.size,
+                             np.int64)
+        self._fill = 0
+
+    def home(self, key: int) -> int:
+        return int(self._hash(np.array([key], np.uint64), self.bits)[0])
+
+    def filler(self) -> int:
+        self._fill += 1
+        return _FILLER + self._fill
+
+    def free(self, key: int, span: int) -> bool:
+        """Whether the ``span`` slots from key's home slot are all empty."""
+        h = self.home(key)
+        return all(self.keys[(h + i) % self.size] == _EMPTY
+                   for i in range(span))
+
+    def chain(self, key: int, val, pos: int) -> None:
+        """``key`` at slot ``pos`` (1 = its home slot) of its chain, every
+        slot before it filled; the chain wraps at the table's end."""
+        h = self.home(key)
+        for i in range(pos - 1):
+            at = (h + i) % self.size
+            if self.keys[at] == _EMPTY:
+                self.keys[at] = self.filler()
+        self.keys[(h + pos - 1) % self.size] = key
+        self.vals[(h + pos - 1) % self.size] = val
+
+    def insert(self, key: int, val) -> None:
+        """Linear probing from the home slot (a key already there keeps
+        its value)."""
+        at = self.home(key)
+        while self.keys[at] not in (_EMPTY, key):
+            at = (at + 1) % self.size
+        if self.keys[at] == _EMPTY:
+            self.keys[at] = key
+            self.vals[at] = val
+
+    def fill_all(self) -> None:
+        """Every empty slot filled: no chain meets EMPTY."""
+        for at in np.flatnonzero(self.keys == _EMPTY):
+            self.keys[at] = self.filler()
+
+
+def _put_char(p: int, pw: int, i: int, c: int) -> int:
+    shift = 2 * (pw - 1 - i)
+    return (p & ~(3 << shift)) | (c << shift)
+
+
+def _char(p: int, pw: int, i: int) -> int:
+    return (p >> (2 * (pw - 1 - i))) & 3
+
+
+def _del(p: int, pw: int, k: int) -> int:
+    return ((p >> (2 * (pw - k))) << (2 * (pw - 1 - k))) \
+        | (p & ((1 << (2 * (pw - 1 - k))) - 1))
+
+
+def _ins9(p: int, pw: int, k: int, c: int) -> int:
+    hi = p >> (2 * (pw - k))
+    mid = (p >> 2) & ((1 << (2 * (pw - 1 - k))) - 1)
+    return (((hi << 2) | c) << (2 * (pw - 1 - k))) | mid
+
+
+def _rev(p: int, width: int) -> int:
+    out = 0
+    for _ in range(width):
+        out, p = (out << 2) | (p & 3), p >> 2
+    return out
+
+
+def probe_keys(a: int, b: int, pw: int) -> dict:
+    """The keys window a.b probes, by kind (the closed forms of
+    seed_search._probe_kernel): 'fx0' / 'rx0' the 0-error key, 'fsub' /
+    'rsub' the 3pw substitutions that change a char (the other pw repeat
+    the 0-error key), 'fdel' / 'rdel' the pw deletions, 'fins' / 'rins'
+    the 4pw insertions (19-mers)."""
+    s = 2 * pw
+    key0 = (a << s) | b
+    pr = _rev(a, pw)
+    subs = [(i, c) for i in range(pw) for c in range(4)]
+    return {
+        "fx0": key0, "rx0": key0,
+        "fsub": [(a << s) | _put_char(b, pw, i, c) for i, c in subs
+                 if c != _char(b, pw, i)],
+        "rsub": [(_put_char(a, pw, i, c) << s) | b for i, c in subs
+                 if c != _char(a, pw, i)],
+        "fdel": [(a << (s - 2)) | _del(b, pw, k) for k in range(pw)],
+        "rdel": [(_del(a, pw, k) << s) | b for k in range(pw)],
+        "fins": [(a << (s + 2)) | (_ins9(b, pw, k, c) << 2) | (b & 3)
+                 for k in range(pw) for c in range(4)],
+        "rins": [((a >> (s - 2)) << (2 * s))
+                 | (_rev(_ins9(pr, pw, k, c), pw) << s) | b
+                 for k in range(pw) for c in range(4)],
+    }
+
+
+def _distinct_window(rng, pw: int) -> Tuple[int, int]:
+    """A window whose halves have no two equal neighbouring chars, so its
+    deletion keys are distinct."""
+    def half():
+        c = [int(rng.integers(0, 4))]
+        while len(c) < pw:
+            c.append(int((c[-1] + rng.integers(1, 4)) % 4))
+        return int(np.array(c) @ (4 ** np.arange(pw - 1, -1, -1)))
+    return half(), half()
+
+
+class _EdgeCase:
+    """One probe edge input under construction: five tables, r_ids,
+    kmer_counts, windows, and the (window, id) pairs the result must and
+    must not hold."""
+
+    def __init__(self, name: str, pw: int, bits: int, minoccur: int = 0):
+        self.name, self.pw, self.minoccur = name, pw, minoccur
+        from .ops.seed_search import VAL_WIDTH
+        self.t = {k: _EdgeTable(bits, w) for k, w in VAL_WIDTH.items()}
+        self.r_ids: List[int] = []
+        self.counts = np.full(1 << (2 * pw), minoccur + 3, np.int64)
+        self.w1: List[int] = []
+        self.w2: List[int] = []
+        self.present: List[Tuple[int, int]] = []
+        self.absent: List[Tuple[int, int]] = []
+
+    def window(self, a: int, b: int) -> int:
+        self.w1.append(a)
+        self.w2.append(b)
+        return len(self.w1) - 1
+
+    def group(self, ids: Sequence[int]) -> int:
+        """Append ids to r_ids; returns their start."""
+        self.r_ids += list(ids)
+        return len(self.r_ids) - len(ids)
+
+    def build(self) -> dict:
+        tabs = {}
+        for k, t in self.t.items():
+            tabs[k + "_keys"] = t.keys.copy()
+            # uint32 values wrap to int32, as the searchers store them
+            tabs[k + "_val"] = t.vals.astype(np.uint32).view(np.int32)
+        tabs["r_ids"] = np.asarray(self.r_ids or [0], np.int64) \
+            .astype(np.uint32).view(np.int32)
+        tabs["kmer_counts"] = self.counts.copy()
+        return dict(name=self.name, tabs=tabs, pw=self.pw,
+                    w1=np.asarray(self.w1, np.int64),
+                    w2=np.asarray(self.w2, np.int64),
+                    minoccur=self.minoccur, present=list(self.present),
+                    absent=list(self.absent))
+
+
+def _ids(rng, n: int) -> List[int]:
+    """n distinct ids as uint32 values, a third of them >= 2**31 (they
+    wrap negative as int32)."""
+    lo = rng.choice(1 << 30, n - n // 3, replace=False)
+    hi = (1 << 31) + rng.choice(1 << 30, n // 3, replace=False)
+    return [int(x) for x in rng.permutation(np.concatenate([lo, hi]))]
+
+
+def _i32(x: int) -> int:
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _chains_case(rng, pw: int) -> dict:
+    """Chains of the probe tables: keys at slot 32 of a full chain (found)
+    and at slot 33 (not found), a chain of 32 filled slots, chains that
+    wrap from the last slot to slot 0, chains across sector boundaries."""
+    e = _EdgeCase("chains", pw, bits=12)
+    fx, rx, rp = e.t["fx"], e.t["rx"], e.t["rp"]
+
+    def fresh(table, kind, span, want=None):
+        # a window whose `kind` key has `span` empty slots from its home
+        # (and, with `want`, a home slot inside it)
+        while True:
+            a, b = _distinct_window(rng, pw)
+            keys = probe_keys(a, b, pw)
+            key = keys[kind][0] if isinstance(keys[kind], list) \
+                else keys[kind]
+            h = table.home(key)
+            if (want is None or h in want) and table.free(key, span) \
+                    and fx.free(keys["fx0"], 1) and rx.free(keys["rx0"], 1):
+                return a, b, key
+
+    ids = _ids(rng, 64)
+    # F-exact (0-error) keys at slot 32 and 33 of their chains
+    for pos, must in ((32, True), (33, False), (31, True), (5, True)):
+        a, b, key = fresh(fx, "fx0", 40)
+        w = e.window(a, b)
+        fx.chain(key, ids.pop(), pos)
+        (e.present if must else e.absent).append((w, _i32(fx.vals[
+            (fx.home(key) + pos - 1) % fx.size])))
+    # an F substitution key at slot 32 and one at slot 33 (other mode)
+    for pos, must in ((32, True), (33, False)):
+        a, b, key = fresh(fx, "fsub", 40)
+        w = e.window(a, b)
+        fx.chain(key, ids.pop(), pos)
+        (e.present if must else e.absent).append((w, _i32(fx.vals[
+            (fx.home(key) + pos - 1) % fx.size])))
+    # 32 filled slots, then EMPTY: the R-exact key is missing
+    a, b, key = fresh(rx, "rx0", 40)
+    e.window(a, b)
+    h = rx.home(key)
+    for i in range(32):
+        rx.keys[(h + i) % rx.size] = rx.filler()
+    # chains wrapping from the last slot to slot 0: an R-exact group (the
+    # window's mode B) and an R-deletion group
+    top = set(range(rx.size - 3, rx.size))
+    for table, kind, cap in ((rx, "rx0", 4), (rp, "rdel", 16)):
+        a, b, key = fresh(table, kind, 8, want=top)
+        w = e.window(a, b)
+        members = _ids(rng, cap)
+        start = e.group(members)
+        val = [start, cap, members[0]] if kind == "rx0" else [start, cap]
+        table.chain(key, val, 5)
+        e.present += [(w, _i32(m)) for m in members[:1]]
+    # other-mode windows with their probes at chain slots 2..7 (sector
+    # boundaries) in every table
+    for _ in range(6):
+        a, b = _distinct_window(rng, pw)
+        w = e.window(a, b)
+        keys = probe_keys(a, b, pw)
+        for kind, table in (("fsub", fx), ("fdel", e.t["fp"]),
+                            ("fins", e.t["k19"]), ("rsub", rx),
+                            ("rdel", rp), ("rins", e.t["k19"])):
+            key = keys[kind][int(rng.integers(0, len(keys[kind])))]
+            if not table.free(key, 8):
+                continue
+            if kind in ("fsub", "fins", "rins"):
+                val = ids.pop()
+            elif kind == "fdel":
+                val = [ids.pop() & 0x3FFFFFFF, 3]
+            else:
+                val = [e.group(_ids(rng, 4)), 4] + [0] * (kind == "rsub")
+            table.chain(key, val, int(rng.integers(2, 8)))
+    return e.build()
+
+
+def _fill_window(e: _EdgeCase, rng, a: int, b: int, m: int) -> None:
+    """Put window a.b's keys in the tables so its probes collect exactly m
+    ids (before de-dup): R-deletion groups of 16, R-substitution groups of
+    4, then single F-substitution ids.  Its 0-error keys stay out."""
+    keys = probe_keys(a, b, pw=e.pw)
+    left = m
+    for key in keys["rdel"]:
+        if left >= 16:
+            e.t["rp"].insert(key, [e.group(_ids(rng, 16)), 16])
+            left -= 16
+    for key in keys["rsub"]:
+        if left >= 4:
+            e.t["rx"].insert(key, [e.group(_ids(rng, 4)), 4, 0])
+            left -= 4
+    for key in keys["fsub"][:left]:
+        e.t["fx"].insert(key, _ids(rng, 3)[0])
+    assert left <= len(keys["fsub"])
+
+
+def _groups_case(rng, pw: int) -> dict:
+    """Windows at the expansion caps and the sort's sizes, clamped r_ids
+    starts, a shut gate, ids repeated across kinds, ids that wrap
+    negative, an id equal to BIG, and modes A and B at once (minoccur 2)."""
+    e = _EdgeCase("groups", pw, bits=14, minoccur=2)
+    fx, fp, rx, rp, k19 = (e.t[k] for k in ("fx", "fp", "rx", "rp", "k19"))
+    # ids collected before de-dup: around 32, 64 and 128 (the register
+    # sort's sizes) and past them
+    for m in (31, 32, 33, 64, 65, 128, 129):
+        a, b = _distinct_window(rng, pw)
+        e.window(a, b)
+        _fill_window(e, rng, a, b, m)
+    # the most a window can hold: every probe found, every group at its cap
+    a, b = _distinct_window(rng, pw)
+    e.window(a, b)
+    keys = probe_keys(a, b, pw)
+    fx.insert(keys["fx0"], _ids(rng, 1)[0])
+    rx.insert(keys["rx0"], [e.group(_ids(rng, 4)), 4, _ids(rng, 1)[0]])
+    for key in keys["fsub"]:
+        fx.insert(key, _ids(rng, 1)[0])
+    for key in keys["fdel"]:
+        fp.insert(key, [int(rng.integers(0, 1 << 31)), 4])
+    for key in keys["fins"] + keys["rins"]:
+        k19.insert(key, _ids(rng, 1)[0])
+    for key in keys["rsub"]:
+        rx.insert(key, [e.group(_ids(rng, 4)), 4, 0])
+    for key in keys["rdel"]:
+        rp.insert(key, [e.group(_ids(rng, 16)), 16])
+    # one id reached by every kind of probe
+    a, b = _distinct_window(rng, pw)
+    w = e.window(a, b)
+    keys = probe_keys(a, b, pw)
+    x = _ids(rng, 1)[0]
+    fx.insert(keys["fsub"][3], x)
+    fx.insert(keys["fsub"][4], x)
+    k19.insert(keys["fins"][5], x)
+    k19.insert(keys["rins"][6], x)
+    fp.insert(keys["fdel"][1], [x - 2, 4])
+    rx.insert(keys["rsub"][2], [e.group([x, x, 7, x]), 4, 0])
+    rp.insert(keys["rdel"][0], [e.group([5, x] + [x] * 14), 16])
+    e.present.append((w, _i32(x)))
+    # F-deletion ranges through 2**31 - 1 (= BIG, dropped) into negatives,
+    # and a range at the cap with a larger stored count
+    a, b = _distinct_window(rng, pw)
+    w = e.window(a, b)
+    keys = probe_keys(a, b, pw)
+    fp.insert(keys["fdel"][0], [0x7FFFFFFE, 4])
+    fp.insert(keys["fdel"][1], [1000, 9])
+    e.present += [(w, 0x7FFFFFFE), (w, _i32(0x80000000)), (w, 1003)]
+    e.absent += [(w, 0x7FFFFFFF), (w, 1004)]
+    # gates: F shut (count == minoccur), then R shut, then both; every
+    # probe of the window would hit
+    for shut in ("f", "r", "fr"):
+        a, b = _distinct_window(rng, pw)
+        w = e.window(a, b)
+        keys = probe_keys(a, b, pw)
+        fid, rid = _ids(rng, 2)
+        fx.insert(keys["fsub"][0], fid)
+        rx.insert(keys["rsub"][0], [e.group([rid]), 1, 0])
+        if "f" in shut:
+            e.counts[a] = e.minoccur
+        if "r" in shut:
+            e.counts[b] = e.minoccur - 1
+        (e.absent if "f" in shut else e.present).append((w, _i32(fid)))
+        (e.absent if "r" in shut else e.present).append((w, _i32(rid)))
+    # modes: 0-error keys in both tables (A, or the other mode with
+    # full_search), only in R-exact (B), F-exact behind a shut gate (B),
+    # an F-exact id equal to BIG (mode A finds no id)
+    for kind in ("ab", "b", "shut_a", "big"):
+        a, b = _distinct_window(rng, pw)
+        e.window(a, b)
+        keys = probe_keys(a, b, pw)
+        fx.insert(keys["fx0"], 0x7FFFFFFF if kind == "big"
+                  else _ids(rng, 1)[0])
+        if kind != "big":
+            zid = _ids(rng, 1)[0]
+            rx.insert(keys["rx0"], [e.group(_ids(rng, 3)), 3, zid])
+        if kind == "b":
+            fx.keys[fx.keys == keys["fx0"]] = fx.filler()
+        if kind == "shut_a":
+            e.counts[a] = e.minoccur
+        fx.insert(keys["fsub"][1], _ids(rng, 1)[0])
+        rp.insert(keys["rdel"][2], [e.group(_ids(rng, 16)), 16])
+    # r_ids starts past the end (every member the last id) and two before
+    # it (the last id repeated); the groups are made last
+    n_before = len(e.r_ids)
+    a, b = _distinct_window(rng, pw)
+    e.window(a, b)
+    keys = probe_keys(a, b, pw)
+    tail = _ids(rng, 6)
+    e.group(tail)
+    n = len(e.r_ids)
+    rp.insert(keys["rdel"][0], [n + 5, 16])
+    rx.insert(keys["rsub"][0], [n - 2, 4, 0])
+    rx.insert(keys["rsub"][1], [n_before, 4, 0])
+    return e.build()
+
+
+def _full_case(rng, pw: int) -> dict:
+    """Tables of 16 slots with no EMPTY anywhere: a missing key's chain
+    runs 32 slots, twice round the table."""
+    e = _EdgeCase("full", pw, bits=4)
+    ids = _ids(rng, 64)
+    for i in range(12):
+        a, b = _distinct_window(rng, pw)
+        w = e.window(a, b)
+        keys = probe_keys(a, b, pw)
+        if i % 3 == 0:
+            e.t["fx"].insert(keys["fx0"], ids.pop())
+        if i % 3 == 1:
+            e.t["rp"].insert(keys["rdel"][i % pw],
+                             [e.group(_ids(rng, 16)), 16])
+            e.t["k19"].insert(keys["rins"][i], ids.pop())
+        if i % 3 == 2:
+            e.t["fp"].insert(keys["fdel"][i % pw], [ids.pop() >> 2, 4])
+            e.t["rx"].insert(keys["rsub"][i], [e.group(_ids(rng, 4)), 4, 0])
+    for t in e.t.values():
+        t.fill_all()
+    return e.build()
+
+
+def probe_edges(seed: int = 0, pw: int = 9, n_random: int = 64):
+    """The seed probe's edge inputs, each a dict: name, tabs (the
+    searchers' layout as numpy: int64 keys, int32 value rows, int32
+    r_ids, int64 kmer_counts), pw, w1 / w2 (int64), minoccur, and the
+    (window, id) pairs the result must hold (``present``) and must not
+    (``absent``) with full_search on or off.  Three cases: ``chains``
+    (slots 32 / 33 of a chain, full chains, chains that wrap), ``groups``
+    (the caps, the sort sizes, clamped r_ids starts, gates, modes, repeats,
+    wrapped ids) and ``full`` (16-slot tables without EMPTY); each also
+    holds ``n_random`` random windows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for make in (_chains_case, _groups_case, _full_case):
+        case = make(rng, pw)
+        rnd = rng.integers(0, 1 << (2 * pw), (2, n_random))
+        case["w1"] = np.concatenate([case["w1"], rnd[0]])
+        case["w2"] = np.concatenate([case["w2"], rnd[1]])
+        out.append(case)
+    return out

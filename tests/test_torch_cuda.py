@@ -283,33 +283,39 @@ def test_sw2_scratch_only_for_tiles_over_1024_rows(cuda):
 
 
 @pytest.fixture(scope="module")
-def probe_part(tmp_path_factory):
-    from sortmerna_tpu_torch.index.builder import build_index
+def probe_db(tmp_path_factory):
     db = str(tmp_path_factory.mktemp("probe") / "db.fasta")
     seqs = testing.make_db(db, 60, n_families=6, len_range=(1300, 1400),
                            seed=3)
-    return build_index(db).parts[0], seqs
+    return db, seqs
 
 
-def _probe_windows(seqs, n, seed):
-    """Windows cut from the reference (with 0-3 point edits) and random
-    ones, as packed 9-mer halves."""
+@pytest.fixture(scope="module")
+def probe_part(probe_db):
+    from sortmerna_tpu_torch.index.builder import build_index
+    return build_index(probe_db[0]).parts[0], probe_db[1]
+
+
+def _probe_windows(seqs, n, seed, L=18):
+    """Windows of L nt cut from the reference (with 0-3 point edits) and
+    random ones, as packed (L/2)-mer halves."""
     rng = np.random.default_rng(seed)
     code = np.zeros(256, np.int64)
     code[list(b"ACGT")] = [0, 1, 2, 3]
-    weights = 4 ** np.arange(8, -1, -1)
+    pw = L // 2
+    weights = 4 ** np.arange(pw - 1, -1, -1)
     w1, w2 = [], []
     while len(w1) < n:
         e = code[np.frombuffer(seqs[int(rng.integers(len(seqs)))],
                                np.uint8)]
-        st = int(rng.integers(0, len(e) - 18))
-        w = e[st:st + 18].copy()
+        st = int(rng.integers(0, len(e) - L))
+        w = e[st:st + L].copy()
         for _ in range(int(rng.integers(0, 4))):
-            w[rng.integers(0, 18)] = rng.integers(0, 4)
+            w[rng.integers(0, L)] = rng.integers(0, 4)
         if rng.random() < 0.2:
-            w = rng.integers(0, 4, 18)
-        w1.append(int(w[:9] @ weights))
-        w2.append(int(w[9:] @ weights))
+            w = rng.integers(0, 4, L)
+        w1.append(int(w[:pw] @ weights))
+        w2.append(int(w[pw:] @ weights))
     return np.asarray(w1, np.int64), np.asarray(w2, np.int64)
 
 
@@ -331,6 +337,82 @@ def test_seed_probe_kernels_match_plain(cuda, probe_part, full_search,
         assert g.dtype == w.dtype == np.int64
         assert np.array_equal(g, w)
     assert len(want[0]) > 1000
+
+
+@pytest.mark.parametrize("L", [8, 12, 14, 22, 26])
+def test_seed_probe_kernels_match_plain_at_seed_lengths(cuda, probe_db, L):
+    """The other instantiations of seed_probe_kernel<NP> (NP = 2, 3, 4, 5,
+    6 probes a lane at these seed lengths; 18 is NP = 4 too), both
+    modes."""
+    from sortmerna_tpu_torch.index.builder import build_index
+    from sortmerna_tpu_torch.ops import seed_search as S
+    db, seqs = probe_db
+    part = build_index(db, seed_win_len=L).parts[0]
+    w1, w2 = _probe_windows(seqs, 3001, seed=L, L=L)
+    for full_search in (False, True):
+        got = S.DeviceSeedSearcher(part, 0, full_search, device=cuda) \
+            .search_windows(w1, w2)
+        want = S.DeviceSeedSearcher(part, 0, full_search, device="cpu") \
+            .search_windows(w1, w2)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+        assert len(want[0]) > 300
+
+
+@pytest.mark.parametrize("name", ["chains", "groups", "full"])
+@pytest.mark.parametrize("full_search", [False, True])
+def test_seed_probe_kernels_match_plain_on_edges(cuda, name, full_search):
+    """Both kernels on the probe edge inputs (``testing.probe_edges``):
+    chains at and past MAX_PROBES, wrapping or without EMPTY, groups at
+    the caps, 31..376 ids a window, clamped r_ids starts, gates, modes."""
+    from sortmerna_tpu_torch.ops import seed_search as S
+    c = {e["name"]: e for e in testing.probe_edges()}[name]
+    pw, mo = c["pw"], c["minoccur"]
+    host = {k: torch.from_numpy(v) for k, v in c["tabs"].items()}
+    tabs = S.with_home_bits({k: v.to(cuda) for k, v in host.items()})
+    w1, w2 = (torch.from_numpy(c[k].astype(np.int32)) for k in ("w1", "w2"))
+    count, ids = S.seed_probe(tabs, w1.to(cuda), w2.to(cuda), pw,
+                              full_search, mo)
+    want_count, want_ids = S.seed_probe_plain(host, w1.long(), w2.long(),
+                                              pw, full_search, mo)
+    assert torch.equal(count.cpu(), want_count)
+    keep = torch.arange(ids.shape[1])[None] < want_count.long()[:, None]
+    assert torch.equal(ids.cpu()[keep], want_ids[keep])
+    win, got, total = S.seed_compact(count, ids, pw)
+    want = S.seed_compact_plain(want_count, want_ids)
+    n = int(total[0])
+    assert n == len(want[0]) > 50
+    assert torch.equal(win[:n].cpu(), want[0])
+    assert torch.equal(got[:n].cpu(), want[1])
+
+
+@pytest.mark.parametrize("nw, pw", [(1, 9), (1023, 9), (1024, 9),
+                                    (1025, 9), (65536, 9), (100000, 2)])
+def test_seed_compact_scans_its_counts(cuda, nw, pw):
+    """seed_compact's own scan (1024-window blocks, a look-back over 32
+    blocks at a time) on random counts, zeros and full rows included, into
+    given buffers."""
+    from sortmerna_tpu_torch.ops import seed_search as S
+    rng = np.random.default_rng(nw)
+    K = S.ids_per_window(pw)
+    count = rng.integers(0, 4, nw)
+    count[rng.random(nw) < 0.3] = 0
+    count[rng.random(nw) < 0.001] = K
+    ids = rng.integers(-2**31, 2**31 - 1, (nw, K)).astype(np.int32)
+    count = torch.from_numpy(count.astype(np.int32))
+    ids = torch.from_numpy(ids)
+    out = tuple(torch.full((n,), -5, dtype=torch.int32, device=cuda)
+                for n in (nw * K, nw * K, 1)) \
+        + (torch.full((S.compact_state_words(nw),), -5, dtype=torch.int64,
+                      device=cuda),)
+    win, got, total = S.seed_compact(count.to(cuda), ids.to(cuda), pw,
+                                     out=out)
+    assert win is out[0] and got is out[1] and total is out[2]
+    want = S.seed_compact_plain(count, ids)
+    n = int(total[0])
+    assert n == int(count.sum()) == len(want[0])
+    assert torch.equal(win[:n].cpu(), want[0])
+    assert torch.equal(got[:n].cpu(), want[1])
 
 
 @pytest.mark.parametrize("pallas", [None, "2"])

@@ -7,11 +7,14 @@ the ``csrc/seed_probe.cu`` kernels are held against on the card); it must
 return the JAX ``DeviceSeedSearcher``'s ``(window, id)`` arrays element
 for element, on synthetic index parts at seed lengths 14, 18 and 22, for
 random, real and mutated windows, with and without ``--full_search`` and
-a ``minoccur`` gate.  The CLI with
+a ``minoccur`` gate, and on the probe edge inputs of
+``testing.probe_edges`` (tables written slot by slot) against
+``_probe_kernel`` itself.  The CLI with
 ``-device_probe`` must write the JAX CLI's reports byte for byte.  Inputs
 come from numpy.random.default_rng(seed).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -121,14 +124,35 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(synth):
     want = tss.seed_probe_plain(s.tabs, w1.long(), w2.long(), 9, False, 0)
     assert torch.equal(count, want[0]) and torch.equal(ids, want[1])
     assert ids.shape == (len(w1), tss.ids_per_window(9)) == (len(w1), 439)
-    win, got = tss.seed_compact(count, ids, 9)
+    win, got, total = tss.seed_compact(count, ids, 9)
     assert torch.equal(win, tss.seed_compact_plain(count, ids)[0])
     assert torch.equal(got, tss.seed_compact_plain(count, ids)[1])
     assert tss.LAUNCHES == {"seed_probe": 0, "seed_compact": 0}
-    assert int(count.sum()) == len(got) > 300
+    assert int(count.sum()) == len(got) == int(total[0]) > 300
     meta = {k: v.to("meta") for k, v in s.tabs.items()}
     with pytest.raises(ValueError, match="kernels run on cuda"):
         tss.seed_probe(meta, w1.to("meta"), w2.to("meta"), 9, False, 0)
+
+
+def test_home_bits_cover_every_key(synth):
+    """The home bitmap the kernel reads first: one bit for each home slot
+    of a key (index/hashtab.hash_u64 of every key the table holds) and no
+    other, so a key whose bit is clear is in no slot."""
+    tabs = [tss.DeviceSeedSearcher(_part(synth, 18), device="cpu").tabs] \
+        + [tss.with_home_bits({k: torch.from_numpy(v)
+                               for k, v in c["tabs"].items()})
+           for c in testing.probe_edges()]
+    for t in tabs:
+        for name in ("fx", "fp", "rx", "rp", "k19"):
+            keys = t[name + "_keys"].numpy()
+            size = len(keys)
+            homes = np.unique(hash_u64(keys[keys != -1].view(np.uint64),
+                                       size.bit_length() - 1))
+            want = np.zeros((size + 31) // 32 * 32, bool)
+            want[homes] = True
+            words = t[name + "_home"].numpy().view(np.uint32)
+            got = (words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+            np.testing.assert_array_equal(got.ravel().astype(bool), want)
 
 
 def test_hash_matches_hash_u64():
@@ -236,3 +260,80 @@ def test_without_gpu_the_device_paths_raise(synth, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="is_available"):
             tcli.main(["-ref", synth[0], "-reads", reads, "-workdir",
                        str(tmp_path / "wd")] + extra)
+
+
+_EDGES = {c["name"]: c for c in testing.probe_edges()}
+
+
+def _jax_tabs(tabs):
+    """Edge tables in the JAX searcher's layout: keys split into uint32
+    halves, uint32 values and counts."""
+    out = {}
+    for name in ("fx", "fp", "rx", "rp", "k19"):
+        lo, hi = jss._split_keys_u64(tabs[name + "_keys"].view(np.uint64))
+        out[name + "_lo"], out[name + "_hi"] = jnp.asarray(lo), \
+            jnp.asarray(hi)
+        out[name + "_val"] = jnp.asarray(tabs[name + "_val"].view(np.uint32))
+    out["r_ids"] = jnp.asarray(tabs["r_ids"].view(np.uint32))
+    out["kmer_counts"] = jnp.asarray(tabs["kmer_counts"].astype(np.uint32))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_EDGES))
+@pytest.mark.parametrize("full_search", [False, True])
+def test_probe_edges_match_probe_kernel(name, full_search):
+    """The plain versions, and the wrappers on cpu, against _probe_kernel
+    on tables written slot by slot: chains at and past MAX_PROBES, chains
+    that wrap or hold no EMPTY, groups at the caps, clamped r_ids starts,
+    gates, modes, repeated and wrapped ids."""
+    c = _EDGES[name]
+    pw, nw = c["pw"], len(c["w1"])
+    w1, w2 = c["w1"].astype(np.int32), c["w2"].astype(np.int32)
+    cap = nw * tss.ids_per_window(pw)
+    ow, oi, total = jss._probe_kernel(
+        _jax_tabs(c["tabs"]), jnp.asarray(w1), jnp.asarray(w2),
+        jnp.int32(nw), pw, full_search, c["minoccur"], cap)
+    total = int(total)
+    want = (np.asarray(ow[:total]), np.asarray(oi[:total]))
+    tabs = {k: torch.from_numpy(v) for k, v in c["tabs"].items()}
+    got = tss.probe_windows_plain(tabs, torch.from_numpy(c["w1"]),
+                                  torch.from_numpy(c["w2"]), pw,
+                                  full_search, c["minoccur"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    win, ids, n = tss.probe_windows(tabs, torch.from_numpy(w1),
+                                    torch.from_numpy(w2), pw, full_search,
+                                    c["minoccur"])
+    assert int(n[0]) == total
+    np.testing.assert_array_equal(win.numpy(), want[0])
+    np.testing.assert_array_equal(ids.numpy(), want[1])
+    pairs = set(zip(want[0].tolist(), want[1].tolist()))
+    assert all(p in pairs for p in c["present"])
+    assert not any(p in pairs for p in c["absent"])
+    assert total > 50
+
+
+def test_probe_edges_reach_their_sizes():
+    """The groups case's windows collect 31, 32, 33, 64, 65, 128, 129 and
+    376 ids before de-dup in the kernel's probe list (the register sort's
+    sizes either side, and the most a window can hold at pw 9: 1 + 27 + 36
+    + 28 F ids, 4 + 108 + 144 + 28 R ids, every probe found and every
+    group at its cap); the tables hold the layouts the kernel must
+    take."""
+    c = _EDGES["groups"]
+    tabs = {k: torch.from_numpy(v) for k, v in c["tabs"].items()}
+    count, ids = tss.seed_probe_plain(tabs, torch.from_numpy(c["w1"]),
+                                      torch.from_numpy(c["w2"]), 9, True, 2)
+    # the windows' ids are distinct (no de-dup), so the unique count is
+    # the collected count for the first seven
+    assert count[:7].tolist() == [31, 32, 33, 64, 65, 128, 129]
+    assert 128 < int(count[7]) <= 376
+    full = _EDGES["full"]["tabs"]
+    assert all((full[k + "_keys"] != -1).all() and len(full[k + "_keys"])
+               == 16 for k in ("fx", "fp", "rx", "rp", "k19"))
+    with pytest.raises(ValueError, match="power of two"):
+        bad = dict(tabs, fx_keys=tabs["fx_keys"][:12].contiguous(),
+                   fx_val=tabs["fx_val"][:12].contiguous())
+        tss.seed_probe(bad, torch.from_numpy(c["w1"].astype(np.int32)),
+                       torch.from_numpy(c["w2"].astype(np.int32)), 9, True,
+                       2)
