@@ -36,8 +36,9 @@ printed):
    without EMPTY; groups at the caps; 31 to 376 ids a window; clamped
    r_ids starts, gates, modes, repeated and wrapped ids), full_search off
    and on, bit-exact; then the device tables' bytes, and both kernels
-   timed (seed_compact beside the PyTorch masked select, its
-   ``library_ms``);
+   timed: seed_probe against a bound of one key sector for each distinct
+   key the windows need, seed_compact by graph replay and eagerly, beside
+   the PyTorch masked select (its ``library_ms``, eager);
 7. align: the align task at full size through ``sortmerna_tpu_torch.cli``
    on ``cuda`` -- a synthetic 16S-like database of 4,000 sequences of
    1,300-1,600 nt (about 6 Mnt, 40 families, members about 8% apart) and
@@ -58,7 +59,8 @@ printed):
    through ``TorchSwBackend.batch`` -> the ``sw_scan`` kernel.
 
 Before the last line it prints the card line and one JSON line with the
-six kernels (launches on their path, ms, plain ms, bound, library ms);
+six kernels (launches on their path, ms, plain ms, bound, library ms, and
+how each was timed);
 the last line
 is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
 chiprun_out/chip_smoke/.  It takes about five minutes.
@@ -102,10 +104,8 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from sortmerna_tpu_torch.tools.ab import card_line
+    return card_line()
 
 
 def max_sm_clock_hz() -> float:
@@ -117,31 +117,10 @@ def max_sm_clock_hz() -> float:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2, graph: bool = False) -> float:
-    """Device ms a call of ``fn``, CUDA events around ``iters`` calls after
-    ``warmup``.  ``graph``: the calls captured in a CUDA graph and
-    replayed, so that a launch shorter than its host-side wrapper is timed
-    on the device, not on the host."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(iters):
-                fn()
-        torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    if graph:
-        g.replay()
-    else:
-        for _ in range(iters):
-            fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+    """Device ms a call of ``fn`` (CUDA events; ``graph``: replayed from a
+    CUDA graph), the timer the A/B tools use too."""
+    from sortmerna_tpu_torch.tools.ab import cuda_ms
+    return cuda_ms(fn, iters, warmup, graph)
 
 
 def launches() -> dict:
@@ -435,7 +414,8 @@ def phase_timing(mat):
         ms = cuda_ms(lambda: kernel(buf, mat, B, lq, lr, 5, 2), 20)
         plain_ms = cuda_ms(lambda: plain(buf, mat, B, lq, lr, 5, 2), 2,
                            warmup=1)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, cells=cells,
+        res[name] = dict(ms=ms, timed_by="CUDA events over 20 launches",
+                         plain_ms=plain_ms, cells=cells,
                          **bound(cells, nbytes))
 
     # the scans (forward, no terminate) at the same tile shape
@@ -447,7 +427,8 @@ def phase_timing(mat):
         ms = cuda_ms(lambda: kernel(Q, rv, R, cv, mat, 5, 2, False), 20)
         plain_ms = cuda_ms(lambda: plain(Q, rv, R, cv, mat, 5, 2, False,
                                          None), 2, warmup=1)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, cells=cells,
+        res[name] = dict(ms=ms, timed_by="CUDA events over 20 launches",
+                         plain_ms=plain_ms, cells=cells,
                          **bound(cells, nbytes))
     for k, v in res.items():
         log(f"timing {k} {B}x{lq}x{lr}: {v['ms']:.4f} ms (plain "
@@ -567,26 +548,49 @@ def phase_probe(db, reads):
     count, ids = S.seed_probe(tabs, w1, w2, pw, False, 0, out=bufs["probe"])
     pairs = int(count.sum())
     # the lookups these windows need: the two 0-error keys, and in the
-    # other mode (no 0-error hit behind an open gate) the 4pw other
-    # substitutions, pw deletions and 4pw insertions of each subsearch
-    # whose gate (kmer_counts > minoccur) is open
-    key0 = (w1.long() << (2 * pw)) | w2.long()
+    # other mode (no 0-error hit behind an open gate) the distinct keys of
+    # each subsearch whose gate (kmer_counts > minoccur) is open, varying
+    # w2 on the F side and w1 on the R side.  Of the 9pw probes the JAX
+    # package enumerates a side (4pw substitutions, pw deletions, 4pw
+    # insertions), pw substitutions put back the char in place (the
+    # 0-error key, counted already), pw - 1 insertions repeat another
+    # insertion's key, and deleting any char of a run of equal chars gives
+    # one key: 3pw + (3pw + 1) + (runs of the half) distinct keys.  The
+    # bound counts those; the count of every enumerated probe is logged
+    # beside it.
+    w1l, w2l = w1.long(), w2.long()
+    key0 = (w1l << (2 * pw)) | w2l
     zf = S._probe_table(tabs["fx_keys"], tabs["fx_val"], key0)[0]
     rzf = S._probe_table(tabs["rx_keys"], tabs["rx_val"], key0)[0]
-    gate_f = tabs["kmer_counts"][w1.long()] > 0
-    gate_r = tabs["kmer_counts"][w2.long()] > 0
+    gate_f = tabs["kmer_counts"][w1l] > 0
+    gate_r = tabs["kmer_counts"][w2l] > 0
     other = ~((zf & gate_f) | (rzf & gate_r))
-    lookups = 2 * N_WINDOWS + 9 * pw * int(
-        (other & gate_f).sum() + (other & gate_r).sum())
+
+    def runs(x):
+        c = torch.stack([(x >> (2 * i)) & 3 for i in range(pw)])
+        return 1 + (c[1:] != c[:-1]).sum(0)
+
+    open_f, open_r = other & gate_f, other & gate_r
+    sides = int(open_f.sum() + open_r.sum())
+    lookups = 2 * N_WINDOWS + (6 * pw + 1) * sides + int(
+        runs(w2l)[open_f].sum() + runs(w1l)[open_r].sum())
+    probes = 2 * N_WINDOWS + 9 * pw * sides
+
+    def probe_bytes(n):
+        # w1, w2 in, a 32-byte key sector a lookup, a count and an id out
+        return 8 * N_WINDOWS + SECTOR * n + 4 * N_WINDOWS + 4 * pairs
+
     res = {}
-    nbytes = 8 * N_WINDOWS + SECTOR * lookups + 4 * N_WINDOWS + 4 * pairs
     res["seed_probe"] = dict(
         ms=cuda_ms(lambda: S.seed_probe(tabs, w1, w2, pw, False, 0,
                                         out=bufs["probe"]), 20),
+        timed_by="CUDA events over 20 launches",
         plain_ms=cuda_ms(lambda: S.probe_windows_plain(
             tabs, w1.long(), w2.long(), pw, False, 0), 2, warmup=1),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, lookups=lookups, pairs=pairs, windows=N_WINDOWS,
+        bound_ms=probe_bytes(lookups) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, lookups=lookups,
+        bound_ms_every_probe=probe_bytes(probes) / HBM_BYTES_PER_S * 1e3,
+        probes=probes, open_sides=sides, pairs=pairs, windows=N_WINDOWS,
         table_bytes=tb)
     # seed_compact: the counts in, each kept id in, a pair and the total
     # out (its time includes the scan of the counts)
@@ -597,20 +601,33 @@ def phase_probe(db, reads):
         mask = torch.arange(K, device=dev)[None, :] < count[:, None]
         return ids[mask], mask.nonzero()
 
+    def compact():
+        return S.seed_compact(count, ids, pw, out=bufs["compact"])
+
+    # ms from a graph replay (the launch is shorter than its wrapper's
+    # host time); eager_ms from eager launches, timed as library_ms is
     res["seed_compact"] = dict(
-        ms=cuda_ms(lambda: S.seed_compact(count, ids, pw,
-                                          out=bufs["compact"]), 50,
-                   graph=True),
+        ms=cuda_ms(compact, 50, graph=True),
+        timed_by="CUDA graph replay of 50 launches; eager_ms and library_ms "
+                 "CUDA events over eager calls",
+        eager_ms=cuda_ms(compact, 50),
         plain_ms=cuda_ms(lambda: S.seed_compact_plain(count, ids), 5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=cuda_ms(library, 20),
+        library_ms=cuda_ms(library, 50),
         pairs=pairs, windows=N_WINDOWS)
-    for k, v in res.items():
-        log(f"timing {k} {N_WINDOWS} windows: {v['ms']:.4f} ms (plain "
-            f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms"
-            + (f", library {v['library_ms']:.4f} ms" if v["library_ms"]
-               else "") + f"; {pairs} pairs"
-            + (f", {lookups} lookups)" if k == "seed_probe" else ")"))
+    v = res["seed_probe"]
+    log(f"timing seed_probe {N_WINDOWS} windows: {v['ms']:.4f} ms (plain "
+        f"{v['plain_ms']:.2f} ms; bound {v['bound_ms']:.4f} ms over "
+        f"{lookups} distinct lookups, bound / ms "
+        f"{v['bound_ms'] / v['ms']:.1%}; over every enumerated probe "
+        f"({probes}, 9pw a side) {v['bound_ms_every_probe']:.4f} ms, "
+        f"{v['bound_ms_every_probe'] / v['ms']:.1%}; {sides} open sides, "
+        f"{pairs} pairs)")
+    v = res["seed_compact"]
+    log(f"timing seed_compact {N_WINDOWS} windows: {v['ms']:.4f} ms by "
+        f"graph replay, {v['eager_ms']:.4f} ms eager (plain "
+        f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4g} ms, library "
+        f"{v['library_ms']:.4f} ms eager; {pairs} pairs)")
     return res
 
 
@@ -951,6 +968,8 @@ def main() -> int:
             # no single PyTorch call computes SW or the window search;
             # the compaction's is a masked select (timed, never called)
             "library_ms": t.get("library_ms"),
+            "timed_by": t["timed_by"],
+            **({"eager_ms": t["eager_ms"]} if "eager_ms" in t else {}),
         })
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(card_line())

@@ -62,6 +62,7 @@ typedef unsigned long long u64;
 constexpr int WPW = 4;          // windows a warp of seed_probe takes
 constexpr int WARPS = 4;        // warps a block of seed_probe
 constexpr int CT = 1024;        // threads (windows) a block of seed_compact
+                                // (seed_search.COMPACT_BLOCK)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_PROBES = 32;
 constexpr u64 EMPTY = ~0ull;
@@ -645,6 +646,12 @@ cudaError_t launch_probe(const int* w1, const int* w2, const long long* counts,
     return cudaGetLastError();
 }
 
+// 64-bit words of seed_compact's state for NW windows: the ticket, then a
+// word for each block (seed_search.compact_state_words)
+int compact_state_words(int NW) {
+    return 1 + (NW + CT - 1) / CT;
+}
+
 }  // namespace
 
 extern "C" {
@@ -687,18 +694,12 @@ int smr_seed_probe(const int* w1, const int* w2, const long long* counts,
     return (int)cudaErrorInvalidValue;
 }
 
-// 64-bit words of seed_compact's state for NW windows: the ticket, then a
-// word for each block
-int smr_seed_compact_state_words(int NW) {
-    return 1 + (NW + CT - 1) / CT;
-}
-
 int smr_seed_compact(const int* count, const int* scratch, int NW, int pw,
                      void* state, int* out_win, int* out_id, int* total,
                      void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     if (NW <= 0) return (int)cudaMemsetAsync(total, 0, sizeof(int), st);
-    const int words = smr_seed_compact_state_words(NW);
+    const int words = compact_state_words(NW);
     cudaError_t err = cudaMemsetAsync(state, 0, words * sizeof(u64), st);
     if (err != cudaSuccess) return (int)err;
     seed_compact_kernel<<<words - 1, CT, 0, st>>>(

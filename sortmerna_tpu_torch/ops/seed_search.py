@@ -77,9 +77,8 @@ SIGNATURES = {
                        + [_VP, _CI, _CI, _CI, _CI, _VP, _VP, _VP]),
     # count, scratch, NW, pw, state, out_win, out_id, total, stream
     "smr_seed_compact": (_CI, [_VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP]),
-    # NW -> int64 words of seed_compact's state
-    "smr_seed_compact_state_words": (_CI, [_CI]),
 }
+COMPACT_BLOCK = 1024      # windows a block of seed_compact (CT in the .cu)
 
 # seed half-widths the kernel takes (the CLI's -L 8..26 gives 4..13)
 MIN_PW, MAX_PW = 4, 13
@@ -424,8 +423,9 @@ def seed_probe(tabs, w1, w2, pw: int, full_search: bool, minoccur: int,
 
 
 def compact_state_words(NW: int) -> int:
-    """int64 words of seed_compact's state for NW windows."""
-    return int(_lib().smr_seed_compact_state_words(NW))
+    """int64 words of seed_compact's state for NW windows: the block
+    ticket, then a (flag, sum) word for each block."""
+    return 1 + -(-NW // COMPACT_BLOCK)
 
 
 def seed_compact(count, ids, pw: int, out=None):

@@ -11,19 +11,19 @@ builder, and 65,536 windows cut from the reads (seed 2025, the first
 reads of the 100,000) as chip_smoke.py's probe phase cuts them.  Each
 checkout's ``csrc/seed_probe.cu`` is built (nvcc, all at once) and timed
 in a child process of its own, in the order given and then back (old,
-new, new, old for two), so that drift of the card over the run falls on
-both sides.  A child times, on
-the same tables and windows (full_search off, minoccur 0):
+new, new, old for two; ``tools/ab.py``), so that drift of the card over
+the run falls on both sides.  A child times, on the same tables and
+windows (full_search off, minoccur 0), into the searcher's persistent
+buffers as the search does:
 
 * ``seed_probe``: the kernel alone, CUDA events over 100 launches after 5
   warm-up launches;
-* ``seed_compact``: the kernel alone, 100 launches captured in a CUDA
-  graph and replayed (its launches are shorter than the wrapper's host
-  time);
-* ``compaction``: everything from the counts to a total on the host, with
-  the host clock over 100 rounds: ``torch.cumsum``, the host read of the
-  total and the launch for a checkout whose wrapper takes the offsets;
-  the launch and the read of the total for one that scans in the kernel;
+* ``seed_compact``: the kernel alone (its scan of the counts included),
+  100 launches captured in a CUDA graph and replayed (its launches are
+  shorter than the wrapper's host time); ``seed_compact_eager`` the same
+  from CUDA events over 100 eager launches;
+* ``compaction``: from the counts to a total on the host (the launch and
+  the read of the total), host clock over 100 rounds;
 * ``search``: ``DeviceSeedSearcher.search_windows`` on the numpy windows
   (copies in and out included), host clock over 20 calls.
 
@@ -34,12 +34,13 @@ time.
 
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import ab  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -51,16 +52,15 @@ PART_FIELDS = ("f_exact_keys", "f_exact_vals", "f_pref_keys",
                "k19_vals", "r_ids", "kmer_counts")
 
 _CHILD = r"""
-import hashlib, json, sys, time, types
-sys.path.insert(0, sys.argv[1])
+import hashlib, types
 import numpy as np
 import torch
 from sortmerna_tpu_torch.ops import seed_search as S
 from sortmerna_tpu_torch.ops import sw_kernels
-if sys.argv[2] == "build":
+if BUILD:
     sw_kernels.build_one("seed_probe", force=True)
     sys.exit(0)
-z = np.load(sys.argv[3])
+z = np.load(ARGS[0])
 part = types.SimpleNamespace(**{k: z[k] for k in z.files
                                 if k not in ("w1", "w2", "L")})
 part.seed_win_len = int(z["L"])
@@ -71,90 +71,21 @@ tabs = searcher.tabs
 w1n, w2n = z["w1"], z["w2"]
 w1 = torch.from_numpy(w1n).to(dev, torch.int32)
 w2 = torch.from_numpy(w2n).to(dev, torch.int32)
-scans = not hasattr(S, "compact_into")     # the kernel takes its offsets
-if scans:
-    bufs = searcher._buffers(len(w1n))
-    probe = lambda: S.seed_probe(tabs, w1, w2, pw, False, 0,
-                                 out=bufs["probe"])
-else:
-    probe = lambda: S.seed_probe(tabs, w1, w2, pw, False, 0)
+bufs = searcher._buffers(len(w1n))
+probe = lambda: S.seed_probe(tabs, w1, w2, pw, False, 0, out=bufs["probe"])
 count, ids = probe()
-
-def launch():
-    if scans:
-        return S.seed_compact(count, ids, pw, out=bufs["compact"])
-    return S.compact_into(count, ends, ids, pw, win, out)
-
-def compaction():
-    global ends, win, out
-    if scans:
-        return int(S.seed_compact(count, ids, pw, out=bufs["compact"])[2][0])
-    ends = torch.cumsum(count, 0)
-    total = int(ends[-1])
-    win = torch.empty(total, dtype=torch.int32, device=dev)
-    out = torch.empty(total, dtype=torch.int32, device=dev)
-    S.compact_into(count, ends, ids, pw, win, out)
-    return total
-
-compaction()
-
-def events_ms(fn, iters=100, warmup=5):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
-
-def graph_ms(fn, iters=100, warmup=5):
-    # the launches replayed from a CUDA graph: device time, not the
-    # wrapper's host time, for a launch shorter than its wrapper
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    g.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
-
-def host_ms(fn, iters, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3 / iters
-
+compact = lambda: S.seed_compact(count, ids, pw, out=bufs["compact"])
 got = searcher.search_windows(w1n, w2n)
 digest = hashlib.sha256(got[0].tobytes() + got[1].tobytes()).hexdigest()
 print(json.dumps({
-    "seed_probe": events_ms(probe),
-    "seed_compact": graph_ms(launch),
-    "compaction": host_ms(compaction, 100),
+    "seed_probe": cuda_ms(probe, 100, 5),
+    "seed_compact": cuda_ms(compact, 100, 5, graph=True),
+    "seed_compact_eager": cuda_ms(compact, 100, 5),
+    "compaction": host_ms(lambda: int(compact()[2][0]), 100),
     "search": host_ms(lambda: searcher.search_windows(w1n, w2n), 20),
     "pairs": int(len(got[0])), "digest": digest[:16],
 }))
 """
-
-
-def child(checkout: str, *args: str) -> subprocess.CompletedProcess:
-    return subprocess.run([sys.executable, "-c", _CHILD, checkout, *args],
-                          capture_output=True, text=True, timeout=900)
 
 
 def make_batch(path: str, top: str) -> None:
@@ -182,36 +113,13 @@ def main(argv) -> int:
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
-    builds = [subprocess.Popen([sys.executable, "-c", _CHILD, c, "build"])
-              for c in argv]
+    print(ab.card_line(), flush=True)
+    builds = ab.start_builds(_CHILD, argv)
     with tempfile.TemporaryDirectory(prefix="probe_ab_") as top:
         batch = os.path.join(top, "batch.npz")
         make_batch(batch, top)
-        if any(p.wait(timeout=900) for p in builds):
-            print("probe_ab: a build failed", file=sys.stderr)
-            return 1
-        runs = []
-        for checkout in argv + argv[::-1]:
-            p = child(checkout, "time", batch)
-            if p.returncode != 0:
-                print(p.stderr[-3000:], file=sys.stderr)
-                return 1
-            times = json.loads(p.stdout.strip().splitlines()[-1])
-            runs.append(dict(checkout=checkout, **times))
-            print(f"{checkout}: " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in times.items()
-                if isinstance(v, float)) + f"; {times['pairs']} pairs",
-                flush=True)
-    if len({(r["pairs"], r["digest"]) for r in runs}) != 1:
-        print("probe_ab: the checkouts' (window, id) pairs differ",
-              file=sys.stderr)
-        return 1
-    print(json.dumps({"runs": runs}))
-    return 0
+        return ab.in_turns("probe_ab", _CHILD, argv, builds, args=(batch,),
+                           same=("pairs", "digest"))
 
 
 if __name__ == "__main__":
