@@ -54,16 +54,35 @@ printed):
    ``cuda`` (byte-identical reports), then the full run with
    ``-device_probe`` on ``cuda``: ``seed_probe`` and ``seed_compact``
    launches > 0, reports byte-identical to phase 7's;
-10. host-path: the python traverse (native library switched off with
+10. sharded-align: the full run as 2 read shards (``run_align_sharded``,
+   a thread a shard), every wave block split over [cuda:0, cuda:0] by
+   ``MeshSwBackend`` (two ``sw_fused`` launches a block), then the normal
+   post-processing and reports: byte-identical to phase 7's, counters
+   equal;
+11. multihost-align: the full run through two processes of the CLI
+   joined by gloo on 127.0.0.1 (``SMR_NPROCS=2``), both on cuda:0, each
+   with its own workdir and a shared output prefix: process 0's merged
+   reports byte-identical to phase 7's; each process's wall and
+   ``sw_fused`` launches;
+12. tasks-and-resume: 2,000 reads, ``--task`` 0, 1, 2 and 3, 2 against
+   ``--task 4``, and a run hard-exited after its 2nd journal unit then
+   resumed: the same reports;
+13. long-reads: reads of 120, 500 and 2,000 nt and one of 30,000 on cpu
+   and on cuda (byte-identical reports; tiles over 1,024 rows, so
+   ``sw_fused``'s rows-in-scratch path, inside the align), then that
+   path timed beside its bound: ``sw_fused`` at 1024 x 2048 x 2048 and
+   64 x 32768 x 32768, ``sw_fused2`` at the first;
+14. host-path: the python traverse (native library switched off with
    SMR_NO_NATIVE=1, in a child process) on 200 reads, whose SW jobs go
    through ``TorchSwBackend.batch`` -> the ``sw_scan`` kernel.
 
 Before the last line it prints the card line and one JSON line with the
 six kernels (launches on their path, ms, plain ms, bound, library ms, and
-how each was timed);
+how each was timed; ``sw_fused``'s launches on phases 10-13, and both
+fused kernels' times at the long-read tiles);
 the last line
 is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
-chiprun_out/chip_smoke/.  It takes about five minutes.
+chiprun_out/chip_smoke/.  It takes about seven minutes.
 
 All four SW entries (sw_scan / sw_fused of csrc/sw_scan.cu, sw_scan2 /
 sw_fused2 of csrc/sw_scan2.cu) run the one wavefront core of
@@ -376,6 +395,39 @@ def phase_parity_edges(mat):
                 + ", both terminate modes: bit-exact")
 
 
+def int32_rate() -> float:
+    """The card's int32 operations a second: SMs x int32 lanes x the
+    maximum SM clock."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    return props.multi_processor_count * INT32_LANES_PER_SM \
+        * max_sm_clock_hz()
+
+
+def sw_bound(cells, nbytes, rate):
+    """bound_ms of an SW call: the larger of its DP cells' int32 operations
+    over ``rate`` and its bytes over the memory rate."""
+    ops_ms = cells * OPS_PER_CELL / rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def fused_cells(buf, out, lq, lr) -> int:
+    """DP cells a fused call computes on these inputs: every valid cell of
+    the forward pass, and for each pair that passes to the begin pass the
+    rows up to end_read by the columns from end_ref back to beg_ref (where
+    it terminates)."""
+    import numpy as np
+    o = out.cpu().numpy().astype(np.int64)
+    ints = buf[:, lq // 2 + lr // 2:].cpu().numpy().view("<i4")
+    ql = ints[:, 0].clip(0, lq).astype(np.int64)
+    rl = ints[:, 1].clip(0, lr).astype(np.int64)
+    ok = o[1] >= 0
+    return int((ql * rl).sum()
+               + ((o[4][ok] + 1) * (o[2][ok] - o[1][ok] + 1)).sum())
+
+
 def phase_timing(mat):
     import numpy as np
     import torch
@@ -383,30 +435,17 @@ def phase_timing(mat):
     from sortmerna_tpu_torch.testing import fused_block
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
-    props = torch.cuda.get_device_properties(0)
-    int32_rate = props.multi_processor_count * INT32_LANES_PER_SM \
-        * max_sm_clock_hz()
+    rate = int32_rate()
     B, lq, lr = 4096, 256, 256
     res = {}
 
     def bound(cells, nbytes):
-        ops_ms = cells * OPS_PER_CELL / int32_rate * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        return dict(bound_ms=max(ops_ms, bytes_ms),
-                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        return sw_bound(cells, nbytes, rate)
 
     # the fused kernels at the main path's block shape, on one block
     buf = torch.from_numpy(fused_block(rng, B, lq, lr, False)).to(dev)
     out = K.sw_fused(buf, mat, B, lq, lr, 5, 2)
-    o = out.cpu().numpy().astype(np.int64)
-    ints = buf[:, lq // 2 + lr // 2:].cpu().numpy().view("<i4")
-    ql = ints[:, 0].clip(0, lq).astype(np.int64)
-    rl = ints[:, 1].clip(0, lr).astype(np.int64)
-    ok = o[1] >= 0
-    # forward: every valid cell; begin pass: rows up to end_read, columns
-    # from end_ref back to beg_ref (where it terminates)
-    cells = int((ql * rl).sum()
-                + ((o[4][ok] + 1) * (o[2][ok] - o[1][ok] + 1)).sum())
+    cells = fused_cells(buf, out, lq, lr)
     nbytes = buf.numel() + out.numel() * 4
     for name, kernel, plain in (("sw_fused", K.sw_fused, K.sw_fused_plain),
                                 ("sw_fused2", K.sw_fused2,
@@ -433,7 +472,7 @@ def phase_timing(mat):
     for k, v in res.items():
         log(f"timing {k} {B}x{lq}x{lr}: {v['ms']:.4f} ms (plain "
             f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms over "
-            f"{v['cells']} cells at {int32_rate / 1e12:.2f} int32 Top/s)")
+            f"{v['cells']} cells at {rate / 1e12:.2f} int32 Top/s)")
     log("timing v1 / v2 on the same blocks: sw_fused / sw_fused2 "
         f"{res['sw_fused']['ms'] / res['sw_fused2']['ms']:.3f}x, sw_scan / "
         f"sw_scan2 {res['sw_scan']['ms'] / res['sw_scan2']['ms']:.3f}x")
@@ -651,6 +690,16 @@ def make_workload(top, n_reads):
     return db, reads
 
 
+COUNTERS = ("all_reads_count", "num_aligned", "num_short", "num_denovo",
+            "n_yid_ycov", "n_yid_ncov", "n_nid_ycov", "total_otu",
+            "reads_matched_per_db")
+
+
+def counters(readstats) -> dict:
+    """A run's Readstats counters, as its aligned.log reports them."""
+    return {k: getattr(readstats, k) for k in COUNTERS}
+
+
 def head_reads(src, dst, n):
     with open(src) as f, open(dst, "w") as g:
         for i, line in enumerate(f):
@@ -666,11 +715,12 @@ def cli_argv(top, db, reads, wd, extra=()):
 
 
 def same_reports(what, a_dir, b_dir):
-    """Raise unless the two runs' reports are byte-identical; returns the
-    aligned.fa record count."""
+    """Raise unless the reports in the two directories (each run's out/,
+    or a multi-host run's shared output directory) are byte-identical;
+    returns the aligned.fa record count."""
     from sortmerna_tpu_torch import testing as T
-    a = T.read_outputs(os.path.join(a_dir, "out"))
-    b = T.read_outputs(os.path.join(b_dir, "out"))
+    a = T.read_outputs(a_dir)
+    b = T.read_outputs(b_dir)
     if a != b or len(a) < 7:
         bad = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
         raise AssertionError(f"{what}: reports differ: {bad} "
@@ -697,7 +747,8 @@ def phase_cpu_vs_gpu(top, db, reads, extra=(), tag="cpu-vs-gpu",
             else not any(got.values())
         if not ran:
             raise AssertionError(f"{tag}: launches on {dev}: {got}")
-    n_al = same_reports(tag, wds["cpu"], wds["cuda"])
+    n_al = same_reports(tag, os.path.join(wds["cpu"], "out"),
+                        os.path.join(wds["cuda"], "out"))
     log(f"{tag}: reports byte-identical ({n_al} aligned reads in "
         "aligned.fa)")
     return wds["cuda"]
@@ -741,11 +792,15 @@ def phase_align(top, db, reads, n_reads, tag, extra=(), env=None,
     phases = {n: getattr(run_mod, n) for n in
               ("prepare", "run_align", "run_postprocess", "run_reports")}
 
+    captured = {}
+
     def clocked(name, fn):
         def inner(*a, **kw):
             t0 = time.perf_counter()
             try:
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
+                captured.setdefault(name, out)  # prepare's context
+                return out
             finally:
                 phase_s[name] = phase_s.get(name, 0.0) \
                     + time.perf_counter() - t0
@@ -809,8 +864,8 @@ def phase_align(top, db, reads, n_reads, tag, extra=(), env=None,
     if providers != ["alp"]:
         raise AssertionError(f"Gumbel parameters from {providers}, not alp")
     if same_as is not None:
-        same_reports(f"{tag} against {os.path.basename(same_as)}", wd,
-                     same_as)
+        same_reports(f"{tag} against {os.path.basename(same_as)}",
+                     os.path.join(wd, "out"), os.path.join(same_as, "out"))
     log(f"{tag}: {n_reads} reads, {aligned} aligned (Gumbel provider "
         f"alp), {secs:.2f}s, {n_reads / secs:.1f} reads/s, launches {got}"
         + (f"; reports byte-identical to {os.path.basename(same_as)}'s"
@@ -824,7 +879,288 @@ def phase_align(top, db, reads, n_reads, tag, extra=(), env=None,
     return wd, dict(reads=n_reads, aligned=aligned, gumbel_provider="alp",
                     seconds=secs, reads_per_s=n_reads / secs, launches=got,
                     kernel_seconds=kernel_s, phases=phase_s,
+                    counters=counters(captured["prepare"].readstats),
                     stages={k: [s, n] for k, s, n in stages})
+
+
+def phase_sharded_align(top, db, reads, n_reads, wd_full, full):
+    """The align task as 2 read shards (run_align_sharded, a thread a
+    shard) whose SW waves go through MeshSwBackend over [cuda:0, cuda:0]:
+    every wave block is split in two slices, each a real sw_fused launch,
+    and the results are concatenated back.  Then the normal
+    post-processing, OTU map, summary and reports, which must be
+    byte-identical to the align phase's, with the summed counters equal
+    to that run's."""
+    import torch
+    from sortmerna_tpu_torch import cli
+    from sortmerna_tpu_torch.constants import scoring_matrix_5x5
+    from sortmerna_tpu_torch.engine import postprocess, run
+    from sortmerna_tpu_torch.parallel.dist import (MeshSwBackend,
+                                                   run_align_sharded)
+    from sortmerna_tpu_torch.reports.summary import write_summary
+    wd = os.path.join(top, "wd_sharded-align")
+    opts = cli.parse_args(cli_argv(top, db, reads, wd))
+    devices = [torch.device("cuda", 0)] * 2
+    reset_launches()
+    t = time.perf_counter()
+    opts.finalize()
+    ctx = run.prepare(opts)
+    backend = MeshSwBackend(
+        scoring_matrix_5x5(opts.match, opts.mismatch, opts.score_n),
+        opts.gap_open, opts.gap_ext, devices)
+    t_align = time.perf_counter()
+    run_align_sharded(ctx, devices, sw_backend=backend)
+    t_align = time.perf_counter() - t_align
+    otu = run.run_postprocess(ctx)
+    out_dir = os.path.dirname(opts.aligned_pfx)
+    os.makedirs(out_dir, exist_ok=True)
+    postprocess.write_otu_map(otu, os.path.join(out_dir, "otu_map.txt"))
+    write_summary(opts, ctx.refstats, ctx.readstats, len(otu))
+    run.run_reports(ctx, otu)
+    secs = time.perf_counter() - t
+    got = launches()
+    if got["sw_fused"] <= 0:
+        raise AssertionError(f"sharded-align launched no sw_fused: {got}")
+    n_al = same_reports("sharded-align against align", out_dir,
+                        os.path.join(wd_full, "out"))
+    mine = counters(ctx.readstats)
+    if mine != full["counters"]:
+        raise AssertionError(f"sharded-align: counters {mine} differ from "
+                             f"the align phase's {full['counters']}")
+    log(f"sharded-align: {n_reads} reads as 2 shards over [cuda:0, "
+        f"cuda:0], {n_al} aligned, {secs:.2f}s ({t_align:.2f}s in "
+        f"run_align_sharded; align phase {full['seconds']:.2f}s, its "
+        f"run_align {full['phases']['run_align']:.2f}s), launches {got} "
+        f"(align: {full['launches']['sw_fused']}); reports byte-identical "
+        "to align's, counters equal")
+    return dict(seconds=secs, run_align_sharded_s=t_align, launches=got,
+                counters=mine)
+
+
+_MULTIHOST_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from sortmerna_tpu_torch.cli import main
+from sortmerna_tpu_torch.ops import sw_kernels as K
+K.reset_launches()
+t = time.perf_counter()
+rc = main(sys.argv[2:])
+print("RESULT " + json.dumps(dict(rc=rc, seconds=time.perf_counter() - t,
+                                  launches=K.LAUNCHES)))
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost(top, db, reads, n_reads, wd_full, full):
+    """Two processes of the port's CLI joined by gloo on 127.0.0.1
+    (SMR_NPROCS=2, SMR_COORD, SMR_PROC_ID 0 and 1), both on cuda:0, each
+    with its own workdir and the shared -aligned / -other prefix; process
+    0 merges the report sections, which must be byte-identical to the
+    align phase's reports.  Everything they load (kernels, native
+    library, ALP oracle, index, Gumbel cache) is built already."""
+    shared = os.path.join(top, "mh_shared")
+    env = dict(os.environ, SMR_TORCH_DEVICE="cuda", SMR_NPROCS="2",
+               SMR_COORD=f"127.0.0.1:{free_port()}")
+    procs, logs = [], []
+    t = time.perf_counter()
+    for pid in range(2):
+        logs.append(open(os.path.join(OUT_DIR, f"multihost_{pid}.log"),
+                         "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _MULTIHOST_CHILD, REPO]
+            + cli_argv(top, db, reads, os.path.join(top, f"wd_mh{pid}"),
+                       ["-aligned", os.path.join(shared, "aligned"),
+                        "-other", os.path.join(shared, "other")]),
+            env=dict(env, SMR_PROC_ID=str(pid)), stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    try:
+        # a process that fails leaves the other waiting at a barrier
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.perf_counter() - t > 600:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    secs = time.perf_counter() - t
+    res = []
+    for pid, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            raise RuntimeError(f"multihost-align: process {pid} exited "
+                               f"{p.returncode}:\n{text[-3000:]}")
+        line = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        res.append(json.loads(line[-1][len("RESULT "):]))
+        if res[-1]["launches"]["sw_fused"] <= 0:
+            raise AssertionError(f"multihost-align: process {pid} launched "
+                                 f"no sw_fused: {res[-1]['launches']}")
+    left = [n for n in os.listdir(shared) if ".s0" in n or ".s1" in n]
+    if left:
+        raise AssertionError(f"multihost-align: sections left: {left}")
+    n_al = same_reports("multihost-align against align", shared,
+                        os.path.join(wd_full, "out"))
+    log(f"multihost-align: {n_reads} reads over 2 gloo processes on "
+        f"cuda:0, {n_al} aligned, {secs:.2f}s for both; "
+        + "; ".join(f"process {i}: {r['seconds']:.2f}s (align phase "
+                    f"{full['seconds']:.2f}s, "
+                    f"{r['seconds'] / full['seconds']:.2f}x), "
+                    f"{r['launches']['sw_fused']} sw_fused launches"
+                    for i, r in enumerate(res))
+        + "; merged reports byte-identical to align's")
+    return dict(seconds=secs, processes=res)
+
+
+def phase_tasks_resume(top, db, reads):
+    """2,000 reads on cuda: --task 0, 1, 2 in sequence over one workdir,
+    and --task 3 then 2, each giving the reports of --task 4; then a run
+    hard-exited right after its 2nd journal unit (a child process:
+    journal units of 500 reads), resumed in this process, giving them
+    too -- no unit is journaled before its SW waves are fetched."""
+    from sortmerna_tpu_torch import testing as T
+    from sortmerna_tpu_torch.engine.state import AlignJournal
+    sub = os.path.join(top, "reads2k_tasks.fasta")
+    head_reads(reads, sub, 2000)
+    t = time.perf_counter()
+    reset_launches()
+
+    def argv(name, *extra):
+        return cli_argv(top, db, sub, os.path.join(top, name), extra)
+
+    run_cli(argv("wd_task4", "-task", "4"), "cuda")
+    want = os.path.join(top, "wd_task4", "out")
+    for tasks in ((0, 1, 2), (3, 2)):
+        name = "wd_task" + "-".join(map(str, tasks))
+        for task in tasks:
+            run_cli(argv(name, "-task", str(task)), "cuda")
+        same_reports(f"tasks {tasks} against task 4",
+                     os.path.join(top, name, "out"), want)
+    got = launches()
+    wd = os.path.join(top, "wd_crash")
+    p = subprocess.run([sys.executable, "-c", T.CRASH_CHILD, REPO, "2",
+                        "500", "cuda"] + argv("wd_crash"),
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 9:
+        raise RuntimeError(f"tasks-and-resume: the crash child exited "
+                           f"{p.returncode}:\n{p.stderr[-3000:]}")
+    journal = AlignJournal(os.path.join(wd, "kvdb"))
+    units = len(list(journal.scan())) - 1
+    if journal.meta() != {"batch_size": 500, "n_reads": 2000} \
+            or units != 2:
+        raise AssertionError(f"tasks-and-resume: journal {journal.meta()} "
+                             f"with {units} units after the crash")
+    reset_launches()
+    run_cli(argv("wd_crash"), "cuda")
+    resumed = launches()
+    if journal.exists() or resumed["sw_fused"] <= 0:
+        raise AssertionError(f"tasks-and-resume: the resume left its "
+                             f"journal or launched no sw_fused: {resumed}")
+    n_al = same_reports("crash and resume against task 4",
+                        os.path.join(wd, "out"), want)
+    secs = time.perf_counter() - t
+    log(f"tasks-and-resume: 2000 reads on cuda, --task 0,1,2 and 3,2 give "
+        f"--task 4's reports ({n_al} aligned); crashed after 2 of 4 "
+        f"journal units, resumed: the same reports; {secs:.1f}s; launches "
+        f"{got} (task runs), {resumed} (resume)")
+    return dict(seconds=secs, launches=got, resume_launches=resumed)
+
+
+def long_block(rng, B, lq, lr):
+    """A packed wave block of long pairs, every one a true match: queries
+    of 7/8 to all of lq, refs of 7/8 to all of lr holding the query from
+    column 4 on with 0.5% substitutions."""
+    import numpy as np
+    from sortmerna_tpu_torch.testing import pack_block
+    ql = rng.integers(lq * 7 // 8, lq + 1, B)
+    rl = rng.integers(lr * 7 // 8, lr + 1, B)
+    Q = rng.integers(0, 4, (B, lq)).astype(np.int32)
+    R = rng.integers(0, 4, (B, lr)).astype(np.int32)
+    for b in range(B):
+        n = int(min(ql[b], rl[b] - 4))
+        seg = Q[b, :n].copy()
+        flip = rng.random(n) < 0.005
+        seg[flip] = rng.integers(0, 4, int(flip.sum()))
+        R[b, 4:4 + n] = seg
+    return pack_block(Q, R, ql, rl, np.full(B, 60, np.int32))
+
+
+def phase_long_reads(top, mat):
+    """Reads of 120, 500 and 2,000 nt and one of 30,000 (MAX_READ_LEN)
+    aligned on cpu and on cuda: byte-identical reports, and on cuda the
+    long reads' wave blocks (tiles over 1,024 rows) run sw_fused's
+    rows-in-scratch path inside the align.  Then that path timed with
+    CUDA events, beside its bound: sw_fused at 1024 x 2048 x 2048 and
+    64 x 32768 x 32768, sw_fused2 at the first."""
+    import numpy as np
+    import torch
+    from sortmerna_tpu_torch import testing as T
+    from sortmerna_tpu_torch import util
+    from sortmerna_tpu_torch.ops import sw_kernels as K
+    db = os.path.join(top, "long_db.fasta")
+    reads = os.path.join(top, "long_reads.fasta")
+    T.make_long_reads(db, reads, (120, 500, 2000), 20, longest=30000,
+                      seed=2026)
+    wds = {}
+    for dev in ("cpu", "cuda"):
+        wds[dev] = os.path.join(top, f"wd_long_{dev}")
+        util.TIMERS.clear()
+        reset_launches()
+        t = time.perf_counter()
+        run_cli(["-ref", db, "-reads", reads] + T.VERIFY_FLAGS
+                + ["-idx-dir", os.path.join(top, "idx_long"),
+                   "-workdir", wds[dev]], dev)
+        got = launches()
+        blocks = sorted(k for k in util.TIMERS if k.startswith("sw_submit["))
+        log(f"long-reads: 81 reads (120-30,000 nt) on {dev} in "
+            f"{time.perf_counter() - t:.1f}s, launches {got}, blocks "
+            f"{blocks}")
+        if dev == "cuda":
+            tall = [b for b in blocks
+                    if int(b.split("[")[1].split("x")[1]) > 1024]
+            if got["sw_fused"] <= 0 or not tall:
+                raise AssertionError("long-reads: no sw_fused launch on a "
+                                     f"tile over 1,024 rows: {blocks}")
+            long_launches = got
+    n_al = same_reports("long-reads cpu against cuda",
+                        os.path.join(wds["cpu"], "out"),
+                        os.path.join(wds["cuda"], "out"))
+    log(f"long-reads: reports byte-identical on cpu and cuda ({n_al} "
+        "aligned)")
+
+    rng = np.random.default_rng(77)
+    rate = int32_rate()
+    res = {}
+    # a 64 x 32768 x 32768 launch takes seconds: sw_fused2 is timed at
+    # the smaller tile only, and the call that counts the cells warms up
+    for B, lq, lr, iters, kernels in (
+            (1024, 2048, 2048, 10, ("sw_fused", "sw_fused2")),
+            (64, 32768, 32768, 1, ("sw_fused",))):
+        buf = torch.from_numpy(long_block(rng, B, lq, lr)).cuda()
+        for name in kernels:
+            kernel = getattr(K, name)
+            out = kernel(buf, mat, B, lq, lr, 5, 2)
+            cells = fused_cells(buf, out, lq, lr)
+            ms = cuda_ms(lambda: kernel(buf, mat, B, lq, lr, 5, 2), iters,
+                         warmup=0)
+            r = dict(ms=ms, cells=cells, timed_by=f"CUDA events over "
+                     f"{iters} launches",
+                     **sw_bound(cells, buf.numel() + out.numel() * 4, rate))
+            res[f"{name} {B}x{lq}x{lr}"] = r
+            log(f"timing {name} {B}x{lq}x{lr} (rows in scratch): "
+                f"{ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {r['bound_ms'] / ms:.1%}) over {cells} "
+                "cells; plain not timed (hours on the host)")
+    return dict(launches=long_launches, timing=res)
 
 
 _HOST_PATH_CHILD = r"""
@@ -940,13 +1276,35 @@ def main() -> int:
             same_as=wd_full)
         for k in ("seed_probe", "seed_compact"):
             path_launches[k] = probe["launches"][k]
+        sharded = phase_sharded_align(top, db, reads, N_READS, wd_full,
+                                      results)
+        multihost = phase_multihost(top, db, reads, N_READS, wd_full,
+                                    results)
+        tasks = phase_tasks_resume(top, db, reads)
+        long_reads = phase_long_reads(top, mat)
         path_launches["sw_scan"] = phase_host_path(top, db, reads)["sw_scan"]
 
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump(dict(card=card, ptxas=ptxas, timing=timing,
                        align=results,
                        pallas2_align=v2, device_probe_align=probe,
+                       sharded_align=sharded, multihost_align=multihost,
+                       tasks_resume=tasks, long_reads=long_reads,
                        path_launches=path_launches), f, indent=1)
+    # sw_fused's launches on the paths after the three align runs, and both
+    # fused kernels' rows-in-scratch path timed at the long-read tiles
+    other_paths = {
+        "sharded-align": sharded["launches"]["sw_fused"],
+        "multihost-align": [r["launches"]["sw_fused"]
+                            for r in multihost["processes"]],
+        "tasks-and-resume": tasks["launches"]["sw_fused"]
+        + tasks["resume_launches"]["sw_fused"],
+        "long-reads": long_reads["launches"]["sw_fused"]}
+    scratch_tiles = {name: {k.split()[1]: {"ms": v["ms"],
+                                           "bound_ms": v["bound_ms"]}
+                            for k, v in long_reads["timing"].items()
+                            if k.split()[0] == name}
+                     for name in ("sw_fused", "sw_fused2")}
     kernels = []
     for name in ("sw_fused", "sw_scan", "sw_scan2", "sw_fused2",
                  "seed_probe", "seed_compact"):
@@ -970,6 +1328,10 @@ def main() -> int:
             "library_ms": t.get("library_ms"),
             "timed_by": t["timed_by"],
             **({"eager_ms": t["eager_ms"]} if "eager_ms" in t else {}),
+            **({"launches_on_other_paths": other_paths}
+               if name == "sw_fused" else {}),
+            **({"rows_in_scratch": scratch_tiles[name]}
+               if name in scratch_tiles else {}),
         })
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(card_line())

@@ -300,9 +300,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     opts = parse_args(argv)
     if opts.is_cmd:
-        raise NotImplementedError(
-            "-cmd (the interactive session, engine/repl.py) is not ported "
-            "to sortmerna_tpu_torch yet")
+        from .engine.repl import CmdSession
+        CmdSession(opts).run()
+        return 0
     if opts.findex == 1:
         # index-only task (main.cpp:73-76)
         from .index.artifact import build_or_load
@@ -312,9 +312,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("Only performed indexing as 'index' = 1 was specified")
         return 0
     if int(os.environ.get("SMR_NPROCS", "0") or 0) > 1:
-        raise NotImplementedError(
-            "SMR_NPROCS>1 (multi-host runs, parallel/dist.py) is not "
-            "ported to sortmerna_tpu_torch yet")
+        # multi-host launch: one process per host with SMR_COORD /
+        # SMR_NPROCS / SMR_PROC_ID set (parallel/dist.run_all_multihost)
+        from .parallel.dist import run_all_multihost, shutdown_multihost
+        try:
+            run_all_multihost(
+                opts, device=os.environ.get("SMR_TORCH_DEVICE", "cuda"))
+        finally:
+            shutdown_multihost()
+        return 0
     from .engine.run import run_all
     run_all(opts, device=os.environ.get("SMR_TORCH_DEVICE", "cuda"))
     return 0

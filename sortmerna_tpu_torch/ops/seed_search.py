@@ -417,8 +417,12 @@ def seed_probe(tabs, w1, w2, pw: int, full_search: bool, minoccur: int,
     args += [tabs["r_ids"].data_ptr(), int(tabs["r_ids"].shape[0]), NW,
              int(pw), int(bool(full_search)), count.data_ptr(),
              ids.data_ptr(), torch.cuda.current_stream(device).cuda_stream]
-    sw_kernels._raise_on(_lib().smr_seed_probe(*args), "seed_probe")
-    LAUNCHES["seed_probe"] += 1
+    lib = _lib()
+    # the tensors' device is the current one for the launch
+    with torch.cuda.device(device):
+        err = lib.smr_seed_probe(*args)
+    sw_kernels._raise_on(err, "seed_probe")
+    sw_kernels.count_launch("seed_probe", LAUNCHES)
     return count, ids
 
 
@@ -463,12 +467,14 @@ def seed_compact(count, ids, pw: int, out=None):
                 or t.shape[0] < n or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor "
                              f"of >= {n} entries on {device}")
-    err = _lib().smr_seed_compact(
-        count.data_ptr(), ids.data_ptr(), NW, int(pw), state.data_ptr(),
-        win.data_ptr(), got.data_ptr(), total.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.smr_seed_compact(
+            count.data_ptr(), ids.data_ptr(), NW, int(pw), state.data_ptr(),
+            win.data_ptr(), got.data_ptr(), total.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     sw_kernels._raise_on(err, "seed_compact")
-    LAUNCHES["seed_compact"] += 1
+    sw_kernels.count_launch("seed_compact", LAUNCHES)
     return win, got, total
 
 

@@ -93,9 +93,19 @@ SIGNATURES = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(name: str, counts=LAUNCHES) -> None:
+    """One more launch of kernel ``name`` (wrappers run in several threads
+    under read shards, and a ctypes call releases the GIL)."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -490,18 +500,22 @@ def _launch_scan(version: int, name: str, Q, row_valid, R, col_valid, mat,
         _check(tscore, "tscore", torch.int32, (B,), device)
     stem, scratch_fn, scan_fn, _ = _ENTRIES[version]
     lib = load_library(stem)
-    out = torch.empty((3, B), dtype=torch.int32, device=device)
-    scratch = _scratch(lib, scratch_fn, B, Lq, device)
-    err = getattr(lib, scan_fn)(
-        Q.data_ptr(), row_valid.view(torch.uint8).data_ptr(), R.data_ptr(),
-        col_valid.view(torch.uint8).data_ptr(), mat.data_ptr(),
-        int(gap_open), int(gap_ext), int(bool(terminate)),
-        tscore.data_ptr() if tscore is not None else None,
-        B, Lq, Lr, out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        torch.cuda.current_stream(device).cuda_stream, *tail)
+    # the tensors' device is the current one: the launch runs in its
+    # context, on its stream
+    with torch.cuda.device(device):
+        out = torch.empty((3, B), dtype=torch.int32, device=device)
+        scratch = _scratch(lib, scratch_fn, B, Lq, device)
+        err = getattr(lib, scan_fn)(
+            Q.data_ptr(), row_valid.view(torch.uint8).data_ptr(),
+            R.data_ptr(), col_valid.view(torch.uint8).data_ptr(),
+            mat.data_ptr(), int(gap_open), int(gap_ext),
+            int(bool(terminate)),
+            tscore.data_ptr() if tscore is not None else None,
+            B, Lq, Lr, out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            torch.cuda.current_stream(device).cuda_stream, *tail)
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out[0], out[1], out[2]
 
 
@@ -513,15 +527,16 @@ def _launch_fused(version: int, name: str, buf, mat, B, lq, lr, gap_open,
     _check(mat, "mat", torch.int32, (5, 5), device)
     stem, scratch_fn, _, fused_fn = _ENTRIES[version]
     lib = load_library(stem)
-    out = torch.empty((5, B), dtype=torch.int32, device=device)
-    scratch = _scratch(lib, scratch_fn, B, lq, device)
-    err = getattr(lib, fused_fn)(
-        buf.data_ptr(), mat.data_ptr(), B, lq, lr, int(gap_open),
-        int(gap_ext), out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        out = torch.empty((5, B), dtype=torch.int32, device=device)
+        scratch = _scratch(lib, scratch_fn, B, lq, device)
+        err = getattr(lib, fused_fn)(
+            buf.data_ptr(), mat.data_ptr(), B, lq, lr, int(gap_open),
+            int(gap_ext), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out
 
 

@@ -133,6 +133,18 @@ class TorchSwBackend:
         pure cost there."""
         return self.device.type == "cuda"
 
+    def _cpu_block(self, ba: np.ndarray, r_len: np.ndarray) -> np.ndarray:
+        """The leading jobs of ``ba`` in its first job's ref-length
+        bucket.  This exists only so that a CPU align of a 30,000-nt read
+        is affordable (the long-read test halves): the plain version pays
+        for every cell of its tile, so one long job would widen all its
+        block mates' tiles to 32,768 columns.  Jobs sort by r_len, so the
+        cut is a prefix, and pairs are independent, so the results equal
+        the unsplit block's.  The card's blocks do not cut."""
+        rb = np.searchsorted(self._LEN_LADDER, r_len[ba])
+        same = rb == rb[0]
+        return ba[:len(ba) if same.all() else int(np.argmin(same))]
+
     def batch_coords(self, q_data: np.ndarray, q_off, q_len,
                      r_data: np.ndarray, r_off, r_len, minimal):
         """Coordinate-based scoring via the fused one-upload /
@@ -182,6 +194,8 @@ class TorchSwBackend:
             while rows > 64 and rows * (lq + lr) > self.BLOCK_CELLS:
                 rows //= 4
             ba = tent[:rows]
+            if not self._pad_full_block:
+                ba = self._cpu_block(ba, r_len)
             b0 += len(ba)
             if len(ba) < len(tent):
                 lq = self._len_bucket(int(q_len[ba].max()))
@@ -234,13 +248,16 @@ class TorchSwBackend:
                 buf[:, hq + hr:] = ints.view(np.uint8).reshape(B, 12)
             with timed(f"sw_submit[{B}x{lq}x{lr}]"):
                 if cuda:
-                    dev_in = stage.to(self.device, non_blocking=True)
-                    dev_out = self._device_call(dev_in, B, lq, lr)
-                    host = torch.empty((5, B), dtype=torch.int32,
-                                       pin_memory=True)
-                    host.copy_(dev_out, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
+                    # the copies, the launch and the event on the
+                    # backend's device, whichever device is current
+                    with torch.cuda.device(self.device):
+                        dev_in = stage.to(self.device, non_blocking=True)
+                        dev_out = self._device_call(dev_in, B, lq, lr)
+                        host = torch.empty((5, B), dtype=torch.int32,
+                                           pin_memory=True)
+                        host.copy_(dev_out, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record()
                     res = (done, host, stage, dev_in, dev_out)
                 else:
                     res = (None, self._device_call(

@@ -120,6 +120,72 @@ def make_paired_reads(path1: str, path2: str, sources: Sequence[bytes],
             f2.write(f">p{i}/2\n{m2.decode()}\n")
 
 
+def make_long_reads(db_path: str, reads_path: str, lens: Sequence[int],
+                    n_each: int, longest: int = 0, seed: int = 3) -> None:
+    """Reads of mixed lengths against long references: ``n_each`` reads of
+    each length in ``lens`` (cut from three random 12,000-nt references,
+    about 0.5% substitutions, every other one reverse-complemented), one
+    read of ``longest`` nt when given (cut from a reference of ``longest``
+    + 2,000 nt made for it), and ``n_each`` random 200-nt reads."""
+    rng = np.random.default_rng(seed)
+    refs = [rng.choice(ALPHA, size=12000).tobytes() for _ in range(3)]
+    if longest:
+        refs.append(rng.choice(ALPHA, size=longest + 2000).tobytes())
+    with open(db_path, "w") as f:
+        for i, r in enumerate(refs):
+            f.write(f">longref{i} synthetic {len(r)} nt\n{r.decode()}\n")
+
+    def cut(src: bytes, ln: int) -> bytes:
+        off = int(rng.integers(0, len(src) - ln))
+        return _mutate(rng, np.frombuffer(src[off:off + ln], np.uint8),
+                       ln // 200).tobytes()
+
+    with open(reads_path, "w") as f:
+        k = 0
+        for ln in lens:
+            for _ in range(n_each):
+                r = cut(refs[k % 3], ln)
+                f.write(f">m{k}_{ln}\n"
+                        f"{(revcomp(r) if k % 2 else r).decode()}\n")
+                k += 1
+        if longest:
+            f.write(f">m{k}_{longest}\n{cut(refs[3], longest).decode()}\n")
+        for i in range(n_each):
+            f.write(f">junk{i}\n"
+                    f"{rng.choice(ALPHA, size=200).tobytes().decode()}\n")
+
+
+# A child that runs the align task and hard-exits (no clean-up, no
+# consolidated state save) right after the journal's Nth unit checkpoint:
+# a faithful SIGKILL stand-in at the only boundary a kill can differ from
+# (mid-unit kills lose that unit's record and simply redo it).
+#     python -c CRASH_CHILD <repo> <N> <batch size> <cpu|cuda> <CLI args>
+# exits 9 once the Nth unit is journaled.
+CRASH_CHILD = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from sortmerna_tpu_torch.cli import parse_args
+from sortmerna_tpu_torch.engine import state
+from sortmerna_tpu_torch.engine.run import run_all
+
+crash_after = int(sys.argv[2])
+orig = state.AlignJournal.append
+calls = [0]
+
+def crashing_append(self, *a, **k):
+    orig(self, *a, **k)
+    calls[0] += 1
+    if calls[0] >= crash_after:
+        os._exit(9)
+
+state.AlignJournal.append = crashing_append
+run_all(parse_args(sys.argv[5:]), batch_size=int(sys.argv[3]),
+        device=sys.argv[4])
+"""
+
+
 def scan_tiles(rng, B: int, Lq: int, Lr: int):
     """Random SW tiles (chars 0..4) for the column scan: every other pair
     holds a noisy copy of its query prefix, masks are ragged, and the
@@ -297,6 +363,40 @@ def edge_block(rng, B: int, lq: int, lr: int,
     return pack_block(Q, R, ql, rl, minimal)
 
 
+def _normal_log(text: str, paths: Sequence[str]) -> str:
+    """aligned.log without the Command, pid and date lines, each of
+    ``paths`` replaced by ``<dir>``."""
+    keep = []
+    skip_next = False
+    for ln in text.splitlines(keepends=True):
+        if skip_next:               # the command line under " Command:"
+            skip_next = False
+            continue
+        if ln.startswith(" Command:"):
+            skip_next = True
+            continue
+        if ln.startswith(" Process pid"):
+            continue
+        if ln.startswith(" ") and ln.strip()[:3] in (
+                "Mon", "Tue", "Wed", "Thu", "Fri", "Sat", "Sun"):
+            continue
+        for d in paths:
+            ln = ln.replace(d, "<dir>")
+        keep.append(ln)
+    return "".join(keep)
+
+
+def _normal_report(name: str, data: bytes, paths: Sequence[str]):
+    """One report's bytes as the comparisons take them: SAM without its
+    @PG line (it carries the command line), the log normalised."""
+    if name.endswith(".sam"):
+        return b"".join(ln for ln in data.splitlines(keepends=True)
+                        if not ln.startswith(b"@PG"))
+    if name.endswith(".log"):
+        return _normal_log(data.decode(), paths)
+    return data
+
+
 def read_outputs(out_dir: str, paths: Sequence[str] = ()) -> dict:
     """The reports of one run, normalised for comparison across runs:
     aligned.sam without its @PG line (it carries the command line);
@@ -304,38 +404,29 @@ def read_outputs(out_dir: str, paths: Sequence[str] = ()) -> dict:
     ``paths`` (run-specific directories) replaced by ``<dir>``."""
     got = {}
     for name in ("aligned.blast", "aligned.fa", "other.fa", "otu_map.txt",
-                 "aligned_denovo.fa"):
+                 "aligned_denovo.fa", "aligned.sam", "aligned.log"):
         p = os.path.join(out_dir, name)
         if os.path.exists(p):
             with open(p, "rb") as f:
-                got[name] = f.read()
-    p = os.path.join(out_dir, "aligned.sam")
-    if os.path.exists(p):
+                got[name] = _normal_report(name, f.read(), paths)
+    return got
+
+
+def read_reports(out_dir: str, paths: Sequence[str] = ()) -> dict:
+    """Every file of ``out_dir`` (fastq and gzip reports too), normalised
+    as ``read_outputs`` does; a ``.gz`` file is read decompressed, under
+    its name without ``.gz`` (a multi-member stream as one)."""
+    import gzip
+    got = {}
+    for name in sorted(os.listdir(out_dir)):
+        p = os.path.join(out_dir, name)
+        if not os.path.isfile(p):
+            continue
         with open(p, "rb") as f:
-            got["aligned.sam"] = b"".join(
-                ln for ln in f if not ln.startswith(b"@PG"))
-    p = os.path.join(out_dir, "aligned.log")
-    if os.path.exists(p):
-        with open(p) as f:
-            lines = f.read().splitlines(keepends=True)
-        keep = []
-        skip_next = False
-        for ln in lines:
-            if skip_next:           # the command line under " Command:"
-                skip_next = False
-                continue
-            if ln.startswith(" Command:"):
-                skip_next = True
-                continue
-            if ln.startswith(" Process pid"):
-                continue
-            if ln.startswith(" ") and ln.strip()[:3] in (
-                    "Mon", "Tue", "Wed", "Thu", "Fri", "Sat", "Sun"):
-                continue
-            for d in paths:
-                ln = ln.replace(d, "<dir>")
-            keep.append(ln)
-        got["aligned.log"] = "".join(keep)
+            data = f.read()
+        if name.endswith(".gz"):
+            name, data = name[:-3], gzip.decompress(data)
+        got[name] = _normal_report(name, data, paths)
     return got
 
 

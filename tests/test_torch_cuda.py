@@ -444,3 +444,96 @@ def test_backend_on_cuda_matches_cpu(cuda, pallas, monkeypatch):
     want = TorchSwBackend(MAT, 5, 2, device="cpu").batch_coords(*jobs)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+def _wave_jobs(rng, n):
+    """SW jobs as the part driver hands them over: concatenated reads and
+    ref windows, every other pair a true match, ragged lengths."""
+    q_len = rng.integers(1, 400, n).astype(np.int32)
+    r_len = (q_len + rng.integers(0, 80, n)).astype(np.int32)
+    q_off = np.concatenate([[0], np.cumsum(q_len)[:-1]]).astype(np.int64)
+    r_off = np.concatenate([[0], np.cumsum(r_len)[:-1]]).astype(np.int64)
+    q_data = rng.integers(0, 5, int(q_len.sum())).astype(np.uint8)
+    r_data = rng.integers(0, 5, int(r_len.sum())).astype(np.uint8)
+    for i in range(0, n, 2):
+        k = max(min(int(q_len[i]), int(r_len[i]) - 2), 0)
+        r_data[r_off[i] + 2:r_off[i] + 2 + k] = q_data[q_off[i]:q_off[i] + k]
+    minimal = rng.integers(10, 60, n).astype(np.int32)
+    return q_data, q_off, q_len, r_data, r_off, r_len, minimal
+
+
+@pytest.fixture(scope="module")
+def two_gpus(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs: torch.cuda.device_count() is "
+                    f"{torch.cuda.device_count()}")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_launches_run_on_their_tensors_device(two_gpus):
+    """Every kernel launched on tensors of cuda:1 while cuda:0 is the
+    current device: each wrapper makes the tensors' device current, so
+    the launch, its stream and its pointers agree."""
+    from sortmerna_tpu_torch.ops import seed_search as S
+    dev = two_gpus[1]
+    rng = np.random.default_rng(29)
+    mat = torch.from_numpy(MAT).to(dev)
+    with torch.cuda.device(two_gpus[0]):
+        Q, rv, R, cv = (torch.from_numpy(a).to(dev)
+                        for a in testing.scan_tiles(rng, 512, 256, 256)[:4])
+        for kernel, plain in ((K.sw_scan, K.sw_scan_plain),
+                              (K.sw_scan2, K.sw_scan2_plain)):
+            _same(kernel(Q, rv, R, cv, mat, 5, 2, False, None),
+                  plain(Q, rv, R, cv, mat, 5, 2, False, None))
+        buf = torch.from_numpy(testing.fused_block(rng, 512, 256, 256)) \
+            .to(dev)
+        for kernel, plain in ((K.sw_fused, K.sw_fused_plain),
+                              (K.sw_fused2, K.sw_fused2_plain)):
+            _same(kernel(buf, mat, 512, 256, 256, 5, 2).cpu()[None],
+                  plain(buf.cpu(), mat.cpu(), 512, 256, 256, 5, 2)[None])
+        c = testing.probe_edges()[0]
+        host = {k: torch.from_numpy(v) for k, v in c["tabs"].items()}
+        tabs = S.with_home_bits({k: v.to(dev) for k, v in host.items()})
+        w1, w2 = (torch.from_numpy(c[k].astype(np.int32)) for k in ("w1",
+                                                                     "w2"))
+        count, ids = S.seed_probe(tabs, w1.to(dev), w2.to(dev), c["pw"],
+                                  False, c["minoccur"])
+        win, got, total = S.seed_compact(count, ids, c["pw"])
+        n = int(total[0])
+        want = S.probe_windows_plain(host, w1.long(), w2.long(), c["pw"],
+                                     False, c["minoccur"])
+        _same((win[:n], got[:n]), want)
+        # a wave through the backend of cuda:1: its event and copies too
+        jobs = _wave_jobs(rng, 300)
+        got = TorchSwBackend(MAT, 5, 2, device=dev).batch_coords(*jobs)
+    want = TorchSwBackend(MAT, 5, 2, device="cpu").batch_coords(*jobs)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("layout", ["one_gpu_twice", "two_gpus"])
+def test_mesh_backend_matches_cpu(cuda, request, layout):
+    """MeshSwBackend splits each wave block into a slice a device, each
+    fused by sw_fused on its device: the same arrays as the cpu backend,
+    on [cuda:0, cuda:0] (any card) and [cuda:0, cuda:1]."""
+    from sortmerna_tpu_torch.parallel.dist import MeshSwBackend
+    from sortmerna_tpu_torch.parallel.mesh import sharded_sw_step
+    devices = [cuda, cuda] if layout == "one_gpu_twice" \
+        else request.getfixturevalue("two_gpus")
+    rng = np.random.default_rng(31)
+    jobs = _wave_jobs(rng, 701)
+    K.reset_launches()
+    got = MeshSwBackend(MAT, 5, 2, devices).batch_coords(*jobs)
+    assert K.LAUNCHES["sw_fused"] == 2     # one block, a slice a device
+    want = TorchSwBackend(MAT, 5, 2, device="cpu").batch_coords(*jobs)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    Q, _, R, _, qlen, rlen = testing.scan_tiles(rng, 203, 128, 192)
+    minimal = rng.integers(0, 40, 203).astype(np.int32)
+    K.reset_launches()
+    got = sharded_sw_step(Q, qlen, R, rlen, MAT, minimal, 5, 2, devices)
+    assert K.LAUNCHES["sw_scan"] == 2
+    want = sharded_sw_step(Q, qlen, R, rlen, MAT, minimal, 5, 2, ["cpu"])
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(g, w)
+    assert got[3] == want[3]

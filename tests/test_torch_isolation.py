@@ -2,8 +2,9 @@
 
 * a static scan of every module of sortmerna_tpu_torch/ and of
   chip_smoke.py finds no import of ``jax`` or of ``sortmerna_tpu``;
-* a full CLI run of the port on the CPU, in a fresh interpreter, leaves no
-  ``jax*`` or ``sortmerna_tpu.*`` module in ``sys.modules``;
+* a full CLI run of the port on the CPU, a ``-cmd`` session and a
+  read-sharded run over a device list, each in a fresh interpreter, leave
+  no ``jax*`` or ``sortmerna_tpu.*`` module in ``sys.modules``;
 * without a GPU the default device (``cuda``) raises at every entry point
   instead of running on the CPU.
 """
@@ -105,6 +106,59 @@ def test_cli_run_imports_no_jax_and_no_jax_package(tmp_path):
     assert "RC 0" in p.stdout
     out = testing.read_outputs(str(tmp_path / "wd" / "out"))
     assert out["aligned.fa"].count(b">") > 0
+
+
+_SESSION_CHILD = r"""
+import io, json, sys
+sys.path.insert(0, sys.argv[1])
+mode, argv = sys.argv[2], sys.argv[3:]
+from sortmerna_tpu_torch.cli import main, parse_args
+if mode == "cmd":
+    sys.stdin = io.StringIO("read --id=0\nref --idx=0\nindex --idx=0\nexit\n")
+    rc = main(argv + ["-cmd"])
+else:
+    from sortmerna_tpu_torch.constants import scoring_matrix_5x5
+    from sortmerna_tpu_torch.engine import run
+    from sortmerna_tpu_torch.parallel.dist import (
+        MeshSwBackend, run_align_sharded)
+    opts = parse_args(argv)
+    opts.finalize()
+    ctx = run.prepare(opts)
+    run_align_sharded(ctx, ["cpu"] * 2, sw_backend=MeshSwBackend(
+        scoring_matrix_5x5(2, -3, 0), 5, 2, ["cpu"] * 2))
+    run.run_reports(ctx, run.run_postprocess(ctx))
+    rc = 0
+print("MODULES " + json.dumps(sorted(
+    m for m in sys.modules
+    if m.split(".")[0].startswith("jax") or m.split(".")[0] == "sortmerna_tpu")))
+print("RC", rc)
+"""
+
+
+@pytest.mark.parametrize("mode", ["cmd", "sharded"])
+def test_cmd_session_and_sharded_run_import_no_jax(tmp_path, mode):
+    """A -cmd session and a read-sharded run over a device list leave no
+    jax* or sortmerna_tpu.* module behind either."""
+    db = str(tmp_path / "db.fasta")
+    reads = str(tmp_path / "reads.fasta")
+    seqs = testing.make_db(db, 30, n_families=3, len_range=(1300, 1400),
+                           seed=53)
+    testing.make_reads(reads, seqs, 200, seed=54)
+    env = dict(os.environ, SMR_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
+    p = subprocess.run(
+        [sys.executable, "-c", _SESSION_CHILD, str(REPO), mode, "-ref", db,
+         "-reads", reads, "-fastx", "-idx-dir", str(tmp_path / "idx"),
+         "-workdir", str(tmp_path / "wd")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    line = [ln for ln in p.stdout.splitlines() if ln.startswith("MODULES ")]
+    assert json.loads(line[-1][len("MODULES "):]) == []
+    assert "RC 0" in p.stdout
+    if mode == "cmd":
+        assert "id=0_0 " in p.stdout and "unique 18-mers" in p.stdout
+    else:
+        out = testing.read_outputs(str(tmp_path / "wd" / "out"))
+        assert out["aligned.fa"].count(b">") > 0
 
 
 @pytest.fixture

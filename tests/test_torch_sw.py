@@ -265,6 +265,36 @@ def test_backend_batch_jobs_match_jax_backend():
                 assert g[k] == w[k], k
 
 
+def test_cpu_block_cut_matches_the_unsplit_block():
+    """A block that mixes a job of a 30,000-nt ref with short ones: the
+    CPU backend cuts it at the ref-length bucket (two launches of the
+    plain version), and its results equal the unsplit block's."""
+    rng = np.random.default_rng(17)
+    r_len = np.array([30000, 180, 150, 140, 120], np.int32)
+    q_len = np.array([200, 100, 90, 80, 70], np.int32)
+    q_off = np.concatenate([[0], np.cumsum(q_len)[:-1]]).astype(np.int64)
+    r_off = np.concatenate([[0], np.cumsum(r_len)[:-1]]).astype(np.int64)
+    q_data = rng.integers(0, 4, int(q_len.sum())).astype(np.uint8)
+    r_data = rng.integers(0, 4, int(r_len.sum())).astype(np.uint8)
+    for i, at in enumerate((100, 40, 30, 20, 10)):
+        k = int(q_len[i])
+        r_data[r_off[i] + at:r_off[i] + at + k] = \
+            q_data[q_off[i]:q_off[i] + k]
+    minimal = np.full(5, 20, np.int32)
+    jobs = (q_data, q_off, q_len, r_data, r_off, r_len, minimal)
+    cut = TorchSwBackend(MAT, 5, 2, device="cpu")
+    whole = TorchSwBackend(MAT, 5, 2, device="cpu")
+    whole._cpu_block = lambda ba, r_len: ba
+    got, want = (b.batch_coords_submit(*jobs) for b in (cut, whole))
+    assert [len(ba) for ba, _ in got[0]] == [1, 4]
+    assert [len(ba) for ba, _ in want[0]] == [5]
+    got, want = (TorchSwBackend.batch_coords_fetch(h) for h in (got, want))
+    assert list(got[0]) == [2 * int(n) for n in q_len]
+    for name, g, w in zip(("score", "beg_ref", "end_ref", "beg_read",
+                           "end_read"), got, want):
+        assert np.array_equal(g, w), name
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     K.reset_launches()
     rng = np.random.default_rng(9)
