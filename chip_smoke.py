@@ -24,7 +24,9 @@ printed):
    ``edge_block`` (lengths spread over the tile, tie-heavy and
    all-mismatch pairs, gap penalties 5/2, 1/3 and 0/0, a tscore below the
    forward best), plain and with v1's odd chars, at 4096 x 256 x 256 and
-   1024 x 1024 x 256;
+   1024 x 1024 x 256; then sw_fused and sw_fused2 on one long true match
+   at 1 x 32768 x 32768 (the long-tile route over a cluster of 4 CTAs);
+   the 2,048-row tiles above take that route over one CTA;
 4. timing: each SW kernel at the main path's block shape (4096 x 256 x
    256) with CUDA events, beside its plain version and its bound;
 5. cpu-vs-gpu: the first 2,000 reads aligned by the port's CLI on ``cpu``
@@ -68,18 +70,20 @@ printed):
    ``--task 4``, and a run hard-exited after its 2nd journal unit then
    resumed: the same reports;
 13. long-reads: reads of 120, 500 and 2,000 nt and one of 30,000 on cpu
-   and on cuda (byte-identical reports; tiles over 1,024 rows, so
-   ``sw_fused``'s rows-in-scratch path, inside the align), then that
-   path timed beside its bound: ``sw_fused`` at 1024 x 2048 x 2048 and
-   64 x 32768 x 32768, ``sw_fused2`` at the first;
+   and on cuda (byte-identical reports, each device's wall; tiles over
+   1,024 rows, so ``sw_fused``'s long-tile route, inside the align), then
+   that route timed beside its bound for ``sw_fused`` and ``sw_fused2``
+   at ``LONG_TILES`` (1024 x 2048 x 2048, 256 x 4096 x 4096, 64 x 8192 x
+   8192, 64 x 32768 x 32768 and 1 x 32768 x 32768);
 14. host-path: the python traverse (native library switched off with
    SMR_NO_NATIVE=1, in a child process) on 200 reads, whose SW jobs go
    through ``TorchSwBackend.batch`` -> the ``sw_scan`` kernel.
 
 Before the last line it prints the card line and one JSON line with the
 six kernels (launches on their path, ms, plain ms, bound, library ms, and
-how each was timed; ``sw_fused``'s launches on phases 10-13, and both
-fused kernels' times at the long-read tiles);
+how each was timed; ``sw_fused``'s launches on phases 10-13, and under
+``long_tiles`` both fused kernels' route, ms and bound at each long-read
+tile);
 the last line
 is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
 chiprun_out/chip_smoke/.  It takes about seven minutes.
@@ -260,8 +264,9 @@ def phase_build():
         + f" ({', '.join(stems)}); ptxas report in "
         "chiprun_out/chip_smoke/ptxas.txt")
     report = {}
-    for stem, note in (("sw_scan", "<0> keeps rows in scratch"),
-                       ("sw_scan2", "<0> keeps rows in scratch"),
+    for stem, note in (("sw_scan", "<K>: K rows a lane at most; *_long_"
+                        "kernel: the long-tile route, 512 threads at most"),
+                       ("sw_scan2", "the same"),
                        ("seed_probe", "seed_probe_kernel<NP>: NP probes a "
                         "lane, 4 at pw 9")):
         report[stem] = ptxas_report(sw_kernels.build_log(stem).read_text())
@@ -312,6 +317,7 @@ def phase_parity(mat):
                 f"({n_pass}/{B} pairs pass to the begin pass)")
     phase_parity_odd_codes(mat)
     phase_parity_edges(mat)
+    phase_parity_long(mat)
 
 
 def phase_parity_odd_codes(mat):
@@ -393,6 +399,40 @@ def phase_parity_edges(mat):
                 f"inputs{' with odd chars' * odd} {B}x{L}x{Lr}, gaps "
                 + ", ".join(f"{go}/{ge}" for go, ge in T.EDGE_GAPS)
                 + ", both terminate modes: bit-exact")
+
+
+# the long-tile route's timing tiles (B, lq, lr, timed launches): the
+# long-read buckets' blocks as TorchSwBackend forms them, and one
+# 30,000-nt read alone (its latency)
+LONG_TILES = ((1024, 2048, 2048, 10), (256, 4096, 4096, 5),
+              (64, 8192, 8192, 5), (64, 32768, 32768, 3),
+              (1, 32768, 32768, 3))
+LONG_PLAIN_MS = {}      # (name, B, lq, lr) -> the plain version's ms
+
+
+def phase_parity_long(mat):
+    """Both fused entries against their plain versions on one 30,000-nt
+    class pair, 1 x 32768 x 32768 (a cluster of 4 CTAs), bit-exact; the
+    plain version's time is kept for the long-tile timing."""
+    import numpy as np
+    import torch
+    from sortmerna_tpu_torch import testing as T
+    from sortmerna_tpu_torch.ops import sw_kernels as K
+    B, lq, lr = 1, 32768, 32768
+    buf = torch.from_numpy(T.long_block(np.random.default_rng(77), B, lq,
+                                        lr)).cuda()
+    for name in ("sw_fused", "sw_fused2"):
+        got = getattr(K, name)(buf, mat, B, lq, lr, 5, 2)
+        torch.cuda.synchronize()
+        plain = getattr(K, name + "_plain")
+        want = []
+        ms = cuda_ms(lambda: want.append(plain(buf, mat, B, lq, lr, 5, 2)),
+                     1, warmup=0)
+        LONG_PLAIN_MS[name, B, lq, lr] = ms
+        equal_or_raise(f"{name} {B}x{lq}x{lr}", got, want[0])
+        log(f"parity {name} {B}x{lq}x{lr}: bit-exact (score "
+            f"{int(got[0, 0])}, begin pass to column {int(got[1, 0])}; "
+            f"plain {ms / 1e3:.1f} s)")
 
 
 def int32_rate() -> float:
@@ -734,7 +774,7 @@ def phase_cpu_vs_gpu(top, db, reads, extra=(), tag="cpu-vs-gpu",
     on cuda every kernel of ``path_kernels`` launched, on cpu none."""
     sub = os.path.join(top, "reads2k.fasta")
     head_reads(reads, sub, 2000)
-    wds = {}
+    wds, walls = {}, {}
     for dev in ("cpu", "cuda"):
         wds[dev] = os.path.join(top, f"wd2k_{tag}_{dev}")
         t = time.perf_counter()
@@ -1075,32 +1115,12 @@ def phase_tasks_resume(top, db, reads):
     return dict(seconds=secs, launches=got, resume_launches=resumed)
 
 
-def long_block(rng, B, lq, lr):
-    """A packed wave block of long pairs, every one a true match: queries
-    of 7/8 to all of lq, refs of 7/8 to all of lr holding the query from
-    column 4 on with 0.5% substitutions."""
-    import numpy as np
-    from sortmerna_tpu_torch.testing import pack_block
-    ql = rng.integers(lq * 7 // 8, lq + 1, B)
-    rl = rng.integers(lr * 7 // 8, lr + 1, B)
-    Q = rng.integers(0, 4, (B, lq)).astype(np.int32)
-    R = rng.integers(0, 4, (B, lr)).astype(np.int32)
-    for b in range(B):
-        n = int(min(ql[b], rl[b] - 4))
-        seg = Q[b, :n].copy()
-        flip = rng.random(n) < 0.005
-        seg[flip] = rng.integers(0, 4, int(flip.sum()))
-        R[b, 4:4 + n] = seg
-    return pack_block(Q, R, ql, rl, np.full(B, 60, np.int32))
-
-
 def phase_long_reads(top, mat):
     """Reads of 120, 500 and 2,000 nt and one of 30,000 (MAX_READ_LEN)
     aligned on cpu and on cuda: byte-identical reports, and on cuda the
     long reads' wave blocks (tiles over 1,024 rows) run sw_fused's
-    rows-in-scratch path inside the align.  Then that path timed with
-    CUDA events, beside its bound: sw_fused at 1024 x 2048 x 2048 and
-    64 x 32768 x 32768, sw_fused2 at the first."""
+    long-tile route inside the align.  Then that route timed with CUDA
+    events, beside its bound, for both fused kernels at LONG_TILES."""
     import numpy as np
     import torch
     from sortmerna_tpu_torch import testing as T
@@ -1110,7 +1130,7 @@ def phase_long_reads(top, mat):
     reads = os.path.join(top, "long_reads.fasta")
     T.make_long_reads(db, reads, (120, 500, 2000), 20, longest=30000,
                       seed=2026)
-    wds = {}
+    wds, walls = {}, {}
     for dev in ("cpu", "cuda"):
         wds[dev] = os.path.join(top, f"wd_long_{dev}")
         util.TIMERS.clear()
@@ -1119,11 +1139,11 @@ def phase_long_reads(top, mat):
         run_cli(["-ref", db, "-reads", reads] + T.VERIFY_FLAGS
                 + ["-idx-dir", os.path.join(top, "idx_long"),
                    "-workdir", wds[dev]], dev)
+        walls[dev] = time.perf_counter() - t
         got = launches()
         blocks = sorted(k for k in util.TIMERS if k.startswith("sw_submit["))
         log(f"long-reads: 81 reads (120-30,000 nt) on {dev} in "
-            f"{time.perf_counter() - t:.1f}s, launches {got}, blocks "
-            f"{blocks}")
+            f"{walls[dev]:.2f}s, launches {got}, blocks {blocks}")
         if dev == "cuda":
             tall = [b for b in blocks
                     if int(b.split("[")[1].split("x")[1]) > 1024]
@@ -1137,30 +1157,35 @@ def phase_long_reads(top, mat):
     log(f"long-reads: reports byte-identical on cpu and cuda ({n_al} "
         "aligned)")
 
-    rng = np.random.default_rng(77)
     rate = int32_rate()
     res = {}
-    # a 64 x 32768 x 32768 launch takes seconds: sw_fused2 is timed at
-    # the smaller tile only, and the call that counts the cells warms up
-    for B, lq, lr, iters, kernels in (
-            (1024, 2048, 2048, 10, ("sw_fused", "sw_fused2")),
-            (64, 32768, 32768, 1, ("sw_fused",))):
-        buf = torch.from_numpy(long_block(rng, B, lq, lr)).cuda()
-        for name in kernels:
+    # each tile's block from seed 77, as tools/long_ab.py makes it (so the
+    # 1 x 32768 x 32768 block is phase_parity_long's, whose plain time it
+    # keeps); the call that counts the cells warms up
+    for B, lq, lr, iters in LONG_TILES:
+        buf = torch.from_numpy(T.long_block(np.random.default_rng(77), B, lq,
+                                            lr)).cuda()
+        warps, cluster = K.long_geometry(lq)
+        route = (f"{cluster} CTA{'s' * (cluster > 1)} of {warps} warps a "
+                 "pair" + (" (a cluster)" if cluster > 1 else ""))
+        for name in ("sw_fused", "sw_fused2"):
             kernel = getattr(K, name)
             out = kernel(buf, mat, B, lq, lr, 5, 2)
             cells = fused_cells(buf, out, lq, lr)
             ms = cuda_ms(lambda: kernel(buf, mat, B, lq, lr, 5, 2), iters,
                          warmup=0)
-            r = dict(ms=ms, cells=cells, timed_by=f"CUDA events over "
-                     f"{iters} launches",
+            r = dict(ms=ms, cells=cells, route=route, timed_by=f"CUDA "
+                     f"events over {iters} launches",
                      **sw_bound(cells, buf.numel() + out.numel() * 4, rate))
+            if (name, B, lq, lr) in LONG_PLAIN_MS:
+                r["plain_ms"] = LONG_PLAIN_MS[name, B, lq, lr]
             res[f"{name} {B}x{lq}x{lr}"] = r
-            log(f"timing {name} {B}x{lq}x{lr} (rows in scratch): "
-                f"{ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}, {r['bound_ms'] / ms:.1%}) over {cells} "
-                "cells; plain not timed (hours on the host)")
-    return dict(launches=long_launches, timing=res)
+            log(f"timing {name} {B}x{lq}x{lr} ({route}): {ms:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{r['bound_ms'] / ms:.1%}) over {cells} cells; plain "
+                + (f"{r['plain_ms']:.1f} ms" if "plain_ms" in r
+                   else "not timed"))
+    return dict(launches=long_launches, timing=res, walls=walls)
 
 
 _HOST_PATH_CHILD = r"""
@@ -1292,7 +1317,7 @@ def main() -> int:
                        tasks_resume=tasks, long_reads=long_reads,
                        path_launches=path_launches), f, indent=1)
     # sw_fused's launches on the paths after the three align runs, and both
-    # fused kernels' rows-in-scratch path timed at the long-read tiles
+    # fused kernels' long-tile route timed at the long-read tiles
     other_paths = {
         "sharded-align": sharded["launches"]["sw_fused"],
         "multihost-align": [r["launches"]["sw_fused"]
@@ -1300,11 +1325,11 @@ def main() -> int:
         "tasks-and-resume": tasks["launches"]["sw_fused"]
         + tasks["resume_launches"]["sw_fused"],
         "long-reads": long_reads["launches"]["sw_fused"]}
-    scratch_tiles = {name: {k.split()[1]: {"ms": v["ms"],
-                                           "bound_ms": v["bound_ms"]}
-                            for k, v in long_reads["timing"].items()
-                            if k.split()[0] == name}
-                     for name in ("sw_fused", "sw_fused2")}
+    long_tiles = {name: {k.split()[1]: {
+        key: v[key] for key in ("route", "ms", "bound_ms", "bound_by",
+                                "plain_ms") if key in v}
+        for k, v in long_reads["timing"].items() if k.split()[0] == name}
+        for name in ("sw_fused", "sw_fused2")}
     kernels = []
     for name in ("sw_fused", "sw_scan", "sw_scan2", "sw_fused2",
                  "seed_probe", "seed_compact"):
@@ -1330,8 +1355,8 @@ def main() -> int:
             **({"eager_ms": t["eager_ms"]} if "eager_ms" in t else {}),
             **({"launches_on_other_paths": other_paths}
                if name == "sw_fused" else {}),
-            **({"rows_in_scratch": scratch_tiles[name]}
-               if name in scratch_tiles else {}),
+            **({"long_tiles": long_tiles[name]}
+               if name in long_tiles else {}),
         })
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(card_line())

@@ -2,8 +2,10 @@
 
 Two hand-written CUDA sources, each with two entries, on one DP core
 (``csrc/sw_wave.cuh``: a warp per pair, an anti-diagonal wavefront across
-the lanes, rows fitted to each pair, DPX arithmetic); each source brings
-its own column reads and NEG:
+the lanes, rows fitted to each pair, DPX arithmetic; tiles of more than
+1,024 query rows cut a pair's rows into stripes over the warps of
+a CTA or of a thread-block cluster, whose hand-off ``stripe_scan_plain``
+writes out plainly); each source brings its own column reads and NEG:
 
 * csrc/sw_scan.cu, the port of the JAX package's Pallas kernel
   ``sortmerna_tpu/ops/sw_pallas.py::_scan_kernel`` (the default path):
@@ -64,6 +66,7 @@ import torch
 NEG = -(1 << 30)
 NEG2 = -(1 << 29)          # the v2 kernel's NEG (sortmerna_tpu/ops/sw_pallas.py)
 SUB_B = 512                # pairs per grid step of the TPU v2 kernel
+MAX_ROWS = 65536           # the widest tile the kernels take (csrc MAX_ROWS)
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -76,17 +79,16 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_SCAN_ARGS = [_VP] * 5 + [_CI] * 3 + [_VP] + [_CI] * 3 + [_VP] * 3
-_FUSED_ARGS = [_VP, _VP] + [_CI] * 5 + [_VP] * 3
+_SCAN_ARGS = [_VP] * 5 + [_CI] * 3 + [_VP] + [_CI] * 3 + [_VP] * 2
+_FUSED_ARGS = [_VP, _VP] + [_CI] * 5 + [_VP] * 2
 # the C entries of each library: name -> (restype, argtypes)
 SIGNATURES = {
     "sw_scan": {
-        "smr_sw_scratch_ints": (ctypes.c_longlong, [_CI, _CI]),
+        "smr_sw_long_geometry": (None, [_CI, _VP, _VP]),
         "smr_sw_scan": (_CI, _SCAN_ARGS + [_CI]),     # + gather
         "smr_sw_fused": (_CI, _FUSED_ARGS),
     },
     "sw_scan2": {
-        "smr_sw2_scratch_ints": (ctypes.c_longlong, [_CI, _CI]),
         "smr_sw_scan2": (_CI, _SCAN_ARGS),
         "smr_sw_fused2": (_CI, _FUSED_ARGS),
     },
@@ -320,6 +322,118 @@ def _column_scan(Q, row_valid, rcode, col_valid, mat, gap_open, gap_ext,
     return bestscore, end_ref, end_read.to(i32)
 
 
+def stripe_scan_plain(Q, row_valid, R, col_valid, mat, gap_open,
+                      gap_ext, terminate, tscore, height: int,
+                      version: int = 1):
+    """The long-tile kernels' decomposition of the column scan, written
+    plainly (used by the tests only): the rows in stripes of ``height``,
+    each run over every column before the next, consuming the stripe
+    above's bottom-row H, F carry and 64-bit column key ((H << 32) +
+    Lq - 1 - row) per column; only the last stripe applies improved /
+    terminate.  ``version`` 1 reads the columns as sw_scan does, 2 as
+    sw_scan2 (any B).  Equals sw_scan_plain / _scan2 bit for bit."""
+    if version == 1:
+        rcode = torch.where((R >= 0) & (R < 4), R, 4)
+        return _stripe_scan(Q, row_valid, rcode, col_valid, mat, gap_open,
+                            gap_ext, terminate, tscore, NEG, height)
+    rcode, cvalid = _v2_columns(R, col_valid)
+    return _stripe_scan(Q, row_valid, rcode, cvalid, mat, gap_open,
+                        gap_ext, terminate, tscore, NEG2, height)
+
+
+def stripe_fused_plain(buf, mat, B: int, lq: int, lr: int, gap_open: int,
+                       gap_ext: int, height: int, version: int = 1):
+    """sw_fused_plain (version 1) or sw_fused2_plain (2) with both passes
+    through stripe_scan_plain at ``height`` rows a stripe."""
+    def scan(*a, terminate, tscore):
+        return stripe_scan_plain(*a, terminate, tscore, height, version)
+    return _fused(buf, mat, lq, lr, gap_open, gap_ext, scan)
+
+
+def _stripe_scan(Q, row_valid, rcode, col_valid, mat, gap_open, gap_ext,
+                 terminate, tscore, neg, height):
+    B, Lq = Q.shape
+    dev = Q.device
+    i32, i64 = torch.int32, torch.int64
+    mat = mat.to(device=dev, dtype=i32)
+    prof = mat.t()[_profile_rows(Q)]                      # [B, Lq, 5]
+    prof = torch.where(row_valid[:, :, None], prof,
+                       torch.tensor(neg, dtype=i32, device=dev))
+    prof5 = prof.permute(0, 2, 1).contiguous()            # [B, 5, Lq]
+    rcode = rcode.long()
+    bidx = torch.arange(B, device=dev)
+    if tscore is None:
+        tscore = torch.zeros(B, dtype=i32, device=dev)
+    tscore = tscore.to(i32)
+    last_valid = (Lq - 1 - torch.argmax(
+        torch.flip(row_valid, [1]).to(i32), dim=1).to(i32))
+    bestscore = torch.zeros(B, dtype=i32, device=dev)
+    bestkey = (Lq - 1 - last_valid).to(i64)
+    end_ref = torch.full((B,), -1, dtype=i32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    CT = col_valid.t()
+    live = torch.nonzero(col_valid.any(0)).flatten().tolist()
+    j0 = live[0] if live and gap_open >= 0 and gap_ext >= 0 else 0
+    j1 = live[-1] + 1 if live else 0
+    ncol = rcode.shape[1]
+    # the boundary above the first stripe, per column: H 0, the F carry
+    # NEG - (0 - 1) * ge of the closed form's row 0, key 0
+    bh = torch.zeros((B, ncol), dtype=i32, device=dev)
+    bf = torch.full((B, ncol), neg + gap_ext, dtype=i32, device=dev)
+    bk = torch.zeros((B, ncol), dtype=i64, device=dev)
+    zcol = torch.zeros((B, 1), dtype=i32, device=dev)
+    for r0 in range(0, Lq, height):
+        r1 = min(r0 + height, Lq)
+        n = r1 - r0
+        rows = torch.arange(n, dtype=i32, device=dev)[None, :]
+        revrow = (Lq - 1 - r0 - rows).to(i64)
+        valid = row_valid[:, r0:r1]
+        last = r1 == Lq
+        Hprev = torch.zeros((B, n), dtype=i32, device=dev)
+        E = torch.full((B, n), neg, dtype=i32, device=dev)
+        oh, of, ok = bh.clone(), bf.clone(), bk.clone()
+        for j in range(j0, j1):
+            cvj = CT[j]
+            sub = prof5[bidx, rcode[:, j], r0:r1]
+            sub = torch.where(cvj[:, None], sub, neg)
+            # the diagonal into the stripe's first row: the stripe above's
+            # bottom H at the previous column (0 before the first)
+            top = bh[:, j - 1:j] if j > j0 else zcol
+            diag = torch.cat([top, Hprev[:, :-1]], dim=1) + sub
+            E = torch.maximum(E - gap_ext, Hprev - gap_open)
+            Hpre = torch.clamp(torch.maximum(diag, E), min=0)
+            # F: the carry from above, falling one ge a row, against the
+            # closed form inside the stripe
+            fin = bf[:, j:j + 1]
+            gmax = torch.cummax(Hpre - gap_open + rows * gap_ext,
+                                dim=1).values
+            F = torch.maximum(
+                torch.cat([fin - gap_ext, gmax[:, :-1]], dim=1)
+                - (rows - 1) * gap_ext,
+                fin - rows * gap_ext)
+            H = torch.maximum(Hpre, F)
+            H = torch.where(valid, H, 0)
+            colkey = torch.maximum(
+                ((H.to(i64) << 32) + revrow).max(dim=1).values, bk[:, j])
+            oh[:, j] = H[:, -1]
+            of[:, j] = torch.maximum(fin[:, 0] - n * gap_ext,
+                                     gmax[:, -1] - (n - 1) * gap_ext)
+            ok[:, j] = colkey
+            if last:
+                colmax = (colkey >> 32).to(i32)
+                ok_col = cvj & ~done
+                improved = (colmax > bestscore) & ok_col
+                bestscore = torch.where(improved, colmax, bestscore)
+                bestkey = torch.where(improved, colkey, bestkey)
+                end_ref = torch.where(improved, j, end_ref)
+                if terminate:
+                    done = done | ((colmax == tscore) & ok_col)
+            Hprev = H
+        bh, bf, bk = oh, of, ok
+    end_read = Lq - 1 - (bestkey & 0xFFFFFFFF)
+    return bestscore, end_ref, end_read.to(i32)
+
+
 def _unpack_buf(buf, lq: int, lr: int):
     hq, hr = lq // 2, lr // 2
 
@@ -469,16 +583,26 @@ def _on_device(t, name) -> torch.device:
     return t.device
 
 
-# each kernel version's library and C entries: (stem, scratch, scan, fused)
-_ENTRIES = {1: ("sw_scan", "smr_sw_scratch_ints", "smr_sw_scan",
-                "smr_sw_fused"),
-            2: ("sw_scan2", "smr_sw2_scratch_ints", "smr_sw_scan2",
-                "smr_sw_fused2")}
+# each kernel version's library and C entries: (stem, scan, fused)
+_ENTRIES = {1: ("sw_scan", "smr_sw_scan", "smr_sw_fused"),
+            2: ("sw_scan2", "smr_sw_scan2", "smr_sw_fused2")}
 
 
-def _scratch(lib, fn: str, B: int, L: int, device):
-    n = int(getattr(lib, fn)(B, L))
-    return torch.empty(n, dtype=torch.int32, device=device) if n else None
+def long_geometry(L: int) -> Tuple[int, int]:
+    """(warps a CTA, CTAs a cluster) of the long-tile route's launch for a
+    tile of L query rows, as the C entries choose it (both sources share
+    it); (0, 0) for a tile on the register path (L <= 1,024)."""
+    lib = load_library("sw_scan")
+    warps, cluster = ctypes.c_int(), ctypes.c_int()
+    lib.smr_sw_long_geometry(int(L), ctypes.byref(warps),
+                             ctypes.byref(cluster))
+    return warps.value, cluster.value
+
+
+def _check_rows(L: int) -> None:
+    if L > MAX_ROWS:
+        raise ValueError(f"a tile of {L} query rows is past the kernels' "
+                         f"{MAX_ROWS} (8 CTAs x 16 warps x 512 rows)")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -498,13 +622,13 @@ def _launch_scan(version: int, name: str, Q, row_valid, R, col_valid, mat,
     _check(mat, "mat", torch.int32, (5, 5), device)
     if tscore is not None:
         _check(tscore, "tscore", torch.int32, (B,), device)
-    stem, scratch_fn, scan_fn, _ = _ENTRIES[version]
+    _check_rows(Lq)
+    stem, scan_fn, _ = _ENTRIES[version]
     lib = load_library(stem)
     # the tensors' device is the current one: the launch runs in its
     # context, on its stream
     with torch.cuda.device(device):
         out = torch.empty((3, B), dtype=torch.int32, device=device)
-        scratch = _scratch(lib, scratch_fn, B, Lq, device)
         err = getattr(lib, scan_fn)(
             Q.data_ptr(), row_valid.view(torch.uint8).data_ptr(),
             R.data_ptr(), col_valid.view(torch.uint8).data_ptr(),
@@ -512,7 +636,6 @@ def _launch_scan(version: int, name: str, Q, row_valid, R, col_valid, mat,
             int(bool(terminate)),
             tscore.data_ptr() if tscore is not None else None,
             B, Lq, Lr, out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
             torch.cuda.current_stream(device).cuda_stream, *tail)
     _raise_on(err, name)
     count_launch(name)
@@ -525,15 +648,14 @@ def _launch_fused(version: int, name: str, buf, mat, B, lq, lr, gap_open,
         raise ValueError(f"lq={lq}, lr={lr} must be even (packed nibbles)")
     _check(buf, "buf", torch.uint8, (B, lq // 2 + lr // 2 + 12), device)
     _check(mat, "mat", torch.int32, (5, 5), device)
-    stem, scratch_fn, _, fused_fn = _ENTRIES[version]
+    _check_rows(lq)
+    stem, _, fused_fn = _ENTRIES[version]
     lib = load_library(stem)
     with torch.cuda.device(device):
         out = torch.empty((5, B), dtype=torch.int32, device=device)
-        scratch = _scratch(lib, scratch_fn, B, lq, device)
         err = getattr(lib, fused_fn)(
             buf.data_ptr(), mat.data_ptr(), B, lq, lr, int(gap_open),
             int(gap_ext), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, name)
     count_launch(name)

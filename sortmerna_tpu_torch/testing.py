@@ -202,8 +202,8 @@ def scan_tiles(rng, B: int, Lq: int, Lr: int):
         R[b, at:at + n] = seg
     qlen = rng.integers(1, Lq + 1, B)
     rlen = rng.integers(1, Lr + 1, B)
-    qlen[:4] = [1, Lq, 1, Lq]
-    rlen[:4] = [1, 1, Lr, Lr]
+    qlen[:4] = [1, Lq, 1, Lq][:B]
+    rlen[:4] = [1, 1, Lr, Lr][:B]
     rv = np.arange(Lq)[None] < qlen[:, None]
     cv = np.arange(Lr)[None] < rlen[:, None]
     return Q, rv, R, cv, qlen, rlen
@@ -255,6 +255,23 @@ def pack_block(Q, R, ql, rl, minimal) -> np.ndarray:
                      for v in (ql, rl, minimal)], 1)
     buf[:, lq // 2 + lr // 2:] = ints.astype("<i4").view(np.uint8)
     return buf
+
+
+def long_block(rng, B: int, lq: int, lr: int) -> np.ndarray:
+    """A packed wave block of long pairs, every one a true match: queries
+    of 7/8 to all of lq, refs of 7/8 to all of lr holding the query from
+    column 4 on with 0.5% substitutions (the long-tile timing input)."""
+    ql = rng.integers(lq * 7 // 8, lq + 1, B)
+    rl = rng.integers(lr * 7 // 8, lr + 1, B)
+    Q = rng.integers(0, 4, (B, lq)).astype(np.int32)
+    R = rng.integers(0, 4, (B, lr)).astype(np.int32)
+    for b in range(B):
+        n = int(min(ql[b], rl[b] - 4))
+        seg = Q[b, :n].copy()
+        flip = rng.random(n) < 0.005
+        seg[flip] = rng.integers(0, 4, int(flip.sum()))
+        R[b, 4:4 + n] = seg
+    return pack_block(Q, R, ql, rl, np.full(B, 60, np.int32))
 
 
 # Gap penalties (open, extend) of the edge inputs: the default, go < ge

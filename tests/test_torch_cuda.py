@@ -1,13 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Int32-exact (the seed probe: the same arrays in the same order), at small
-shapes that reach both storage paths of the warp-per-pair kernels (rows in
-registers for Lq <= 1024, in global scratch above), query and ref codes
-in -7..15 (``testing.odd_tiles``), the odd inputs of v2 and the edge
-inputs of ``testing.edge_tiles`` / ``edge_block`` (with v1's odd chars for
-the v1 entries).  While working on csrc/sw_scan.cu or csrc/sw_wave.cuh,
-``-k "scan or fused"`` runs the SW kernels' tests alone.  Every test
-is marked ``cuda`` and skips without a GPU.  The JAX package is not
+shapes that reach both routes of the SW kernels (a warp a pair with its
+rows in registers for Lq <= 1024; above, the long-tile route: a pair's
+rows in stripes over the warps of a CTA, and over the CTAs of a cluster
+past 8,192 rows), query and ref codes in -7..15
+(``testing.odd_tiles``), the odd inputs of v2 and the edge inputs of
+``testing.edge_tiles`` / ``edge_block`` (with v1's odd chars for the v1
+entries).  While working on csrc/sw_scan.cu or csrc/sw_wave.cuh,
+``-k "scan or fused or long"`` runs the SW kernels' tests alone.  Every
+test is marked ``cuda`` and skips without a GPU.  The JAX package is not
 needed, so on a machine without JAX run them past the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -63,7 +65,7 @@ def test_sw_scan_kernel_matches_plain(cuda, shape, terminate):
 @pytest.mark.parametrize("shape", [(1024, 256, 256), (512, 2048, 128)])
 @pytest.mark.parametrize("terminate", [False, True])
 def test_sw_scan_kernel_matches_plain_on_odd_codes(cuda, shape, terminate):
-    """Query and ref codes in -7..15, on both storage paths."""
+    """Query and ref codes in -7..15, on both routes."""
     B, Lq, Lr = shape
     rng = np.random.default_rng(B + Lq + Lr + terminate + 1)
     Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
@@ -98,7 +100,7 @@ def test_sw_score_batch_kernel_matches_plain(cuda, shape, terminate):
 
 
 @pytest.mark.parametrize("shape", [(4096, 256, 256), (1024, 1024, 256),
-                                   (1024, 2048, 160)])
+                                   (1024, 2048, 160), (1024, 2048, 256)])
 @pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
 @pytest.mark.parametrize("terminate", [False, True])
 def test_sw_scan_kernel_matches_plain_on_edge_inputs(cuda, shape, gaps,
@@ -106,7 +108,7 @@ def test_sw_scan_kernel_matches_plain_on_edge_inputs(cuda, shape, gaps,
     """testing.edge_tiles with v1's odd chars (query lengths 1..Lq in one
     launch, tie-heavy pairs, holes in the row mask, codes in -7..15), go <
     ge and zero gaps, a tscore below the forward best; Lq = 2048 takes the
-    rows-in-scratch path."""
+    long-tile route (4 warps a pair, the MASK layout)."""
     B, Lq, Lr = shape
     go, ge = gaps
     rng = np.random.default_rng(Lq + 10 * go + ge + terminate + 3)
@@ -160,7 +162,7 @@ def test_sw_fused_kernel_matches_plain(cuda, shape):
 @pytest.mark.parametrize("terminate", [False, True])
 def test_sw_scan2_kernel_matches_plain_on_odd_codes(cuda, shape, terminate):
     """Query and ref codes in -7..15 (negative query codes wrap), on both
-    storage paths."""
+    routes."""
     B, Lq, Lr = shape
     rng = np.random.default_rng(B + Lq + Lr + terminate + 5)
     Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
@@ -182,7 +184,7 @@ def test_sw_scan2_kernel_matches_plain(cuda, shape, terminate):
     """The v2 kernel: a second 512-pair block, a tile whose last 128-column
     chunk is clamped, ref chars outside 0..4, the 3-reduction tie-break
     of Lq = 4096, the main path's block shape, 32 rows a lane (Lq =
-    1024) and the rows-in-scratch path of tiles over 1,024 rows."""
+    1024) and the long-tile route of tiles over 1,024 rows."""
     B, Lq, Lr = shape
     rng = np.random.default_rng(B + Lq + Lr + terminate)
     Q, rv, R, cv = testing.scan_tiles(rng, B, Lq, Lr)[:4]
@@ -206,7 +208,7 @@ def test_sw_scan2_kernel_matches_plain(cuda, shape, terminate):
 def test_sw_fused2_kernel_matches_plain(cuda, shape):
     """Any B (a ragged last block), nibbles 5..15 in the windows of one
     pair in ten; the main path's block shape, 32 rows a lane (lq =
-    1024) and the rows-in-scratch path of tiles over 1,024 rows."""
+    1024) and the long-tile route of tiles over 1,024 rows."""
     B, lq, lr = shape
     rng = np.random.default_rng(sum(shape) + 2)
     buf = testing.fused_block(rng, B, lq, lr)
@@ -231,7 +233,7 @@ def test_sw_scan2_kernel_matches_plain_on_edge_inputs(cuda, Lq, gaps,
     """testing.edge_tiles (query lengths 1..Lq in one launch, so every
     count of rows a lane from 1 to Lq / 32; tie-heavy pairs, holes in the
     row mask), go < ge and zero gaps, a tscore below the forward best;
-    Lq = 2048 takes the rows-in-scratch path."""
+    Lq = 2048 takes the long-tile route."""
     go, ge = gaps
     rng = np.random.default_rng(Lq + 10 * go + ge + terminate)
     Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
@@ -262,24 +264,163 @@ def test_sw_fused2_kernel_matches_plain_on_edge_blocks(cuda, lq, gaps):
     _same(got, K.sw_fused2_plain(buf, mat, B, lq, lr, go, ge))
 
 
-def test_sw_scratch_only_for_tiles_over_1024_rows(cuda):
-    """v1 sizes its scratch as v2 does (one formula, csrc/sw_wave.cuh)."""
-    lib = K.load_library("sw_scan")
-    assert lib.smr_sw_scratch_ints(4096, 256) == 0
-    assert lib.smr_sw_scratch_ints(4096, 1024) == 0
-    assert lib.smr_sw_scratch_ints(64, 1056) == 3 * 1056 * 64
-    assert lib.smr_sw_scratch_ints(64, 1030) == 3 * 1056 * 64
+# The long-tile route: a CTA of 4 warps a pair (2,048 rows), of 16 warps
+# (8,192), a cluster of 4 CTAs (32,768); sw_scan2 takes B in 512s.
+LONG_SHAPES = [(16, 2048, 1024), (4, 8192, 512), (2, 32768, 256)]
+LONG_SHAPES2 = [(512, 2048, 128), (512, 8192, 64), (512, 32768, 16)]
 
 
-def test_sw2_scratch_only_for_tiles_over_1024_rows(cuda):
-    """The register path (Lq <= 1024) allocates no global scratch; wider
-    tiles keep a lane's rows in planes H, E and the row codes of
-    ceil(Lq / 32) * 32 words a pair."""
-    lib = K.load_library("sw_scan2")
-    assert lib.smr_sw2_scratch_ints(4096, 256) == 0
-    assert lib.smr_sw2_scratch_ints(4096, 1024) == 0
-    assert lib.smr_sw2_scratch_ints(64, 1056) == 3 * 1056 * 64
-    assert lib.smr_sw2_scratch_ints(64, 1030) == 3 * 1056 * 64
+def _scan_pair(version):
+    return {1: (K.sw_scan, K.sw_scan_plain, "sw_scan"),
+            2: (K.sw_scan2, K.sw_scan2_plain, "sw_scan2")}[version]
+
+
+def _fused_pair(version):
+    return {1: (K.sw_fused, K.sw_fused_plain, "sw_fused"),
+            2: (K.sw_fused2, K.sw_fused2_plain, "sw_fused2")}[version]
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("at", [0, 1, 2])
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan_long_tiles_match_plain(cuda, version, at, terminate):
+    """Both scan entries on the long-tile route, over a CTA and over a
+    cluster: random tiles with ragged masks and pairs of one row."""
+    B, Lq, Lr = (LONG_SHAPES, LONG_SHAPES2)[version - 1][at]
+    kernel, plain, name = _scan_pair(version)
+    rng = np.random.default_rng(Lq + Lr + 7 * version + terminate)
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda)
+                    for a in testing.scan_tiles(rng, B, Lq, Lr)[:4])
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = plain(Q, rv, R, cv, mat, 5, 2, False, None)[0] if terminate \
+        else None
+    before = K.LAUNCHES[name]
+    got = kernel(Q, rv, R, cv, mat, 5, 2, terminate, ts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    _same(got, plain(Q, rv, R, cv, mat, 5, 2, terminate, ts))
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("shape", LONG_SHAPES)
+@pytest.mark.parametrize("block", ["long", "short"])
+def test_sw_fused_long_tiles_match_plain(cuda, version, shape, block):
+    """Both fused entries on the long-tile route: long true matches (every
+    pair through the begin pass, spans of the whole tile) and the align
+    task's short reads in a long tile (one stripe a pair)."""
+    B, lq, lr = shape
+    kernel, plain, name = _fused_pair(version)
+    rng = np.random.default_rng(lq + lr + version)
+    make = testing.long_block if block == "long" else testing.fused_block
+    buf = torch.from_numpy(make(rng, B, lq, lr)).to(cuda)
+    mat = torch.from_numpy(MAT).to(cuda)
+    before = K.LAUNCHES[name]
+    got = kernel(buf, mat, B, lq, lr, 5, 2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    want = plain(buf, mat, B, lq, lr, 5, 2)
+    _same(got, want)
+    if block == "long":
+        assert (want[1] >= 0).all()
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("lq", [2048, 16384])
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+def test_sw_fused_long_tiles_on_ragged_edge_blocks(cuda, version, lq, gaps):
+    """testing.edge_block on the long-tile route: read lengths 1..lq in one
+    launch, so pairs span from one stripe to every warp of the CTA (2,048
+    rows: 1-4 stripes) or of the cluster (16,384 rows: 1-32), at each edge
+    gap pair, with the odd nibbles of v1's reads."""
+    go, ge = gaps
+    B, lr = (256, 256) if lq == 2048 else (64, 128)
+    kernel, plain, _ = _fused_pair(version)
+    buf = torch.from_numpy(testing.edge_block(
+        np.random.default_rng(lq + 10 * go + ge + version), B, lq, lr,
+        odd=version == 1)).to(cuda)
+    mat = torch.from_numpy(MAT).to(cuda)
+    got = kernel(buf, mat, B, lq, lr, go, ge)
+    torch.cuda.synchronize()
+    _same(got, plain(buf, mat, B, lq, lr, go, ge))
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("gaps", testing.EDGE_GAPS)
+@pytest.mark.parametrize("terminate", [False, True])
+def test_sw_scan_long_edge_inputs_over_a_cluster(cuda, version, gaps,
+                                                 terminate):
+    """testing.edge_tiles at 16,384 rows (a cluster of 2 CTAs): query
+    lengths 1..Lq, holes in the row mask (the MASK layout), tie-heavy
+    pairs, a tscore below the forward best, so the bottom stripe stops
+    the stripes above it mid-scan."""
+    go, ge = gaps
+    B = 64 if version == 1 else 512
+    kernel, plain, _ = _scan_pair(version)
+    rng = np.random.default_rng(16384 + 10 * go + ge + terminate + version)
+    Q, rv, R, cv = (torch.from_numpy(a).to(cuda) for a in testing.edge_tiles(
+        rng, B, 16384, 64, odd=version == 1))
+    mat = torch.from_numpy(MAT).to(cuda)
+    ts = None
+    if terminate:
+        best = plain(Q, rv, R, cv, mat, go, ge, False, None)[0]
+        ts = torch.from_numpy(testing.edge_tscore(rng, best.cpu().numpy())) \
+            .to(cuda)
+    got = kernel(Q, rv, R, cv, mat, go, ge, terminate, ts)
+    torch.cuda.synchronize()
+    _same(got, plain(Q, rv, R, cv, mat, go, ge, terminate, ts))
+
+
+@pytest.mark.parametrize("lq", [2048, 32768])
+def test_sw_long_tiles_padding_only_blocks(cuda, lq):
+    """Blocks of padding pairs only (q_len 0, an empty row mask): every CTA
+    of a cluster reaches every cluster barrier and the launch ends."""
+    B, lr = 8, 256
+    mat = torch.from_numpy(MAT).to(cuda)
+    z = np.zeros(B, np.int32)
+    buf = torch.from_numpy(testing.pack_block(
+        np.zeros((B, lq), np.int32), np.ones((B, lr), np.int32), z,
+        z + lr, z + 10)).to(cuda)
+    for version in (1, 2):
+        kernel, plain, _ = _fused_pair(version)
+        got = kernel(buf, mat, B, lq, lr, 5, 2)
+        torch.cuda.synchronize()
+        _same(got, plain(buf, mat, B, lq, lr, 5, 2))
+    for version in (1, 2):
+        kernel, plain, _ = _scan_pair(version)
+        Bs = 512 if version == 2 else B
+        Q = torch.zeros((Bs, lq), dtype=torch.int32, device=cuda)
+        rv = torch.zeros((Bs, lq), dtype=torch.bool, device=cuda)
+        R = torch.ones((Bs, lr), dtype=torch.int32, device=cuda)
+        cv = torch.ones((Bs, lr), dtype=torch.bool, device=cuda)
+        got = kernel(Q, rv, R, cv, mat, 5, 2, False, None)
+        torch.cuda.synchronize()
+        _same(got, plain(Q, rv, R, cv, mat, 5, 2, False, None))
+
+
+def test_sw_long_geometry(cuda):
+    """The long-tile route's launch: 512 rows a warp at most, one CTA of up
+    to 16 warps, then clusters of 2, 4 and 8 CTAs; none on the register
+    path."""
+    assert K.long_geometry(1024) == (0, 0)
+    assert K.long_geometry(1056) == (3, 1)
+    assert K.long_geometry(2048) == (4, 1)
+    assert K.long_geometry(8192) == (16, 1)
+    assert K.long_geometry(8193) == (9, 2)
+    assert K.long_geometry(16384) == (16, 2)
+    assert K.long_geometry(32768) == (16, 4)
+    assert K.long_geometry(65536) == (16, 8)
+
+
+def test_sw_long_tiles_refuse_past_max_rows(cuda):
+    """A tile wider than the largest cluster holds raises; nothing falls
+    back."""
+    lq, lr, B = K.MAX_ROWS + 2, 2, 1
+    buf = torch.zeros((B, lq // 2 + lr // 2 + 12), dtype=torch.uint8,
+                      device=cuda)
+    mat = torch.from_numpy(MAT).to(cuda)
+    for fn in (K.sw_fused, K.sw_fused2):
+        with pytest.raises(ValueError, match="query rows"):
+            fn(buf, mat, B, lq, lr, 5, 2)
 
 
 @pytest.fixture(scope="module")
