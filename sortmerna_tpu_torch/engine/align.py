@@ -17,6 +17,7 @@ is_done conditions) follow paralleltraversal.cpp:95-297 exactly.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -108,28 +109,34 @@ def run_candidate_waves(gens: List[Tuple[int, object]], backend
     return search_flags
 
 
+# the check-and-build of a part's cached device searcher (read shards
+# reach it from several threads at once)
+_SEARCHER_LOCK = threading.Lock()
+
+
 def _make_searcher(part, opts: Opts, device=None):
     """SeedSearcher for this part; the device prober when requested
     (--device_probe / SMR_DEVICE_PROBE) on ``device`` (the SW backend's),
     cached on the part so its tables go to the device once per part and
-    are reused across strands and batches.  A part whose group sizes
-    exceed the prober's caps takes the host prober, with a warning; any
-    other failure of the device prober raises."""
+    are reused across strands, batches and read shards.  A part whose
+    group sizes exceed the prober's caps takes the host prober, with a
+    warning; any other failure of the device prober raises."""
     if getattr(opts, "device_probe", False):
         from ..ops.seed_search import DeviceSeedSearcher, ProbeCapsExceeded
         key = (opts.minoccur, opts.is_full_search, str(device))
-        cached = getattr(part, "_dev_searcher", None)
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        try:
-            s = DeviceSeedSearcher(part, opts.minoccur, opts.is_full_search,
-                                   device=device)
-        except ProbeCapsExceeded as e:
-            from ..util import WARN
-            WARN(f"device probe unavailable ({e}); using host prober")
-        else:
-            part._dev_searcher = (key, s)
-            return s
+        with _SEARCHER_LOCK:
+            cached = getattr(part, "_dev_searcher", None)
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            try:
+                s = DeviceSeedSearcher(part, opts.minoccur,
+                                       opts.is_full_search, device=device)
+            except ProbeCapsExceeded as e:
+                from ..util import WARN
+                WARN(f"device probe unavailable ({e}); using host prober")
+            else:
+                part._dev_searcher = (key, s)
+                return s
     return SeedSearcher(part, opts.minoccur, opts.is_full_search,
                         threads=opts.threads)
 

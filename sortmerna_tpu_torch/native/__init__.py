@@ -16,6 +16,7 @@ import ctypes
 import os
 import pathlib
 import subprocess
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -24,13 +25,24 @@ _SRC_DIR = pathlib.Path(__file__).resolve().parent
 _BUILD_DIR = _SRC_DIR.parent.parent / "build" / "native_torch"
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOCK = threading.Lock()
 
 
 def _build() -> Optional[ctypes.CDLL]:
+    """The library, built and loaded by the first call (None without a
+    compiler); a thread that arrives during another's build waits for
+    it rather than taking the numpy paths."""
     global _LIB, _TRIED
-    if _LIB is not None or _TRIED:
+    if _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOCK:
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True
+    return _LIB
+
+
+def _load() -> Optional[ctypes.CDLL]:
     # Escape hatch: a host-side native bug must never zero a whole run
     # (bench.py's preflight falls back to the numpy paths via this).
     if os.environ.get("SMR_NO_NATIVE") == "1":
@@ -184,7 +196,6 @@ def _build() -> Optional[ctypes.CDLL]:
         + [ctypes.c_int32, ctypes.c_int32]
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
         + [ctypes.c_int32, ctypes.c_int32])                       # threads, pw
-    _LIB = lib
     return lib
 
 

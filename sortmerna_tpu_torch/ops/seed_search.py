@@ -42,6 +42,7 @@ launches the kernel or raises.  Each launch adds one to
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -518,6 +519,10 @@ class DeviceSeedSearcher:
             raise ProbeCapsExceeded(
                 "index group sizes exceed device probe caps")
         self._bufs = None
+        # a search owns the buffers from its first launch until its host
+        # copies are done: read shards call one searcher from several
+        # threads, and a ctypes launch releases the GIL
+        self._lock = threading.Lock()
         if self.device.type == "cuda":
             _lib()                      # build now: fail before any probe
 
@@ -566,17 +571,18 @@ class DeviceSeedSearcher:
         if min(w1.min(), w2.min()) < 0 or max(w1.max(), w2.max()) >= hi:
             raise ValueError(f"window halves must be packed {self.pw}-mers "
                              f"in [0, {hi})")
-        win, ids, total = probe_windows(
-            self.tabs, torch.from_numpy(w1).to(self.device),
-            torch.from_numpy(w2).to(self.device), self.pw,
-            self.full_search, self.minoccur, self._buffers(nw))
-        n = int(total[0])               # waits for both kernels
-        return (win[:n].cpu().numpy().astype(np.int64),
-                ids[:n].cpu().numpy().astype(np.int64))
+        with self._lock:
+            win, ids, total = probe_windows(
+                self.tabs, torch.from_numpy(w1).to(self.device),
+                torch.from_numpy(w2).to(self.device), self.pw,
+                self.full_search, self.minoccur, self._buffers(nw))
+            n = int(total[0])           # waits for both kernels
+            return (win[:n].cpu().numpy().astype(np.int64),
+                    ids[:n].cpu().numpy().astype(np.int64))
 
     def _buffers(self, nw: int):
         """The kernels' outputs for nw windows, views of buffers made once
-        at MAX_WINDOWS (none on cpu)."""
+        at MAX_WINDOWS (none on cpu); the caller holds ``self._lock``."""
         if self.device.type != "cuda":
             return None
         K = ids_per_window(self.pw)

@@ -556,6 +556,83 @@ def test_seed_compact_scans_its_counts(cuda, nw, pw):
     assert torch.equal(got[:n].cpu(), want[1])
 
 
+@pytest.fixture(scope="module")
+def thread_windows(probe_db, tmp_path_factory):
+    """Two window sets of different sizes, each cut from its own reads of
+    the probe DB as chip_smoke's probe phase cuts them."""
+    top = tmp_path_factory.mktemp("threads")
+    sets = []
+    for i, n in enumerate((5003, 3001)):
+        reads = str(top / f"reads{i}.fasta")
+        testing.make_reads(reads, probe_db[1], 400, seed=40 + i)
+        sets.append(testing.read_windows(reads, 18, n, seed=50 + i))
+    return sets
+
+
+def test_searcher_threads_do_not_share_outputs(cuda, probe_part,
+                                               thread_windows, monkeypatch):
+    """One searcher, two threads (read shards share their part's
+    searcher): each thread's results are its own windows' serial results.
+    First 50 searches a thread side by side, then a forced interleave:
+    thread A stops after its launches (probe_windows returns) until
+    thread B's whole search is done or 2 s have passed.  Without the
+    searcher's lock B's kernels overwrite the shared output buffers
+    before A copies them, and A reads B's windows."""
+    import threading
+    from sortmerna_tpu_torch.ops import seed_search as S
+    searcher = S.DeviceSeedSearcher(probe_part[0], 0, False, device=cuda)
+    want = [searcher.search_windows(*ws) for ws in thread_windows]
+    assert len(want[0][0]) != len(want[1][0]) and len(want[1][0]) > 300
+    wrong = [0, 0]
+
+    def loop(i):
+        for _ in range(50):
+            got = searcher.search_windows(*thread_windows[i])
+            wrong[i] += not all(np.array_equal(g, w)
+                                for g, w in zip(got, want[i]))
+
+    ths = [threading.Thread(target=loop, args=(i,)) for i in (0, 1)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(300)
+    assert not any(t.is_alive() for t in ths)
+
+    a_launched, b_done = threading.Event(), threading.Event()
+    orig = S.probe_windows
+
+    def probe_windows(*a, **kw):
+        out = orig(*a, **kw)
+        if threading.current_thread().name == "A":
+            a_launched.set()
+            b_done.wait(2)
+        return out
+
+    monkeypatch.setattr(S, "probe_windows", probe_windows)
+    got = {}
+
+    def search(name, i):
+        if name == "B":
+            a_launched.wait(60)
+        got[name] = searcher.search_windows(*thread_windows[i])
+        if name == "B":
+            b_done.set()
+
+    ths = [threading.Thread(target=search, args=(n, i), name=n)
+           for n, i in (("A", 0), ("B", 1))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(60)
+    assert not any(t.is_alive() for t in ths)
+    mixed = [name for name, i in (("A", 0), ("B", 1))
+             if not all(np.array_equal(g, w)
+                        for g, w in zip(got[name], want[i]))]
+    # wrong searches of the 50 a thread; threads whose forced search
+    # read another's windows
+    assert (wrong, mixed) == ([0, 0], [])
+
+
 @pytest.mark.parametrize("pallas", [None, "2"])
 def test_backend_on_cuda_matches_cpu(cuda, pallas, monkeypatch):
     """The wave path on both kernels: sw_fused, and sw_fused2 with
@@ -601,6 +678,39 @@ def _wave_jobs(rng, n):
         r_data[r_off[i] + 2:r_off[i] + 2 + k] = q_data[q_off[i]:q_off[i] + k]
     minimal = rng.integers(10, 60, n).astype(np.int32)
     return q_data, q_off, q_len, r_data, r_off, r_len, minimal
+
+
+def test_backend_threads_match_serial(cuda):
+    """Four threads submit and fetch their own waves on one backend (the
+    overlap scheduler's workers and read shards share it), two waves in
+    flight a thread: every result equals that wave's serial result and
+    the plain version's."""
+    import threading
+    rng = np.random.default_rng(37)
+    waves = [_wave_jobs(rng, n) for n in (700, 4500, 300, 1900)]
+    backend = TorchSwBackend(MAT, 5, 2, device=cuda)
+    plain = TorchSwBackend(MAT, 5, 2, device="cpu")
+    want = [backend.batch_coords(*jobs) for jobs in waves]
+    for w, jobs in zip(want, waves):
+        for g, p in zip(w, plain.batch_coords(*jobs)):
+            assert np.array_equal(g, p)
+    wrong = [0] * 4
+
+    def loop(i):
+        for _ in range(10):
+            hs = [backend.batch_coords_submit(*waves[i]) for _ in range(2)]
+            for h in hs:
+                got = backend.batch_coords_fetch(h)
+                wrong[i] += not all(np.array_equal(g, w)
+                                    for g, w in zip(got, want[i]))
+
+    ths = [threading.Thread(target=loop, args=(i,)) for i in range(4)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(300)
+    assert not any(t.is_alive() for t in ths)
+    assert wrong == [0] * 4
 
 
 @pytest.fixture(scope="module")

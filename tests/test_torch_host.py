@@ -10,6 +10,8 @@ import dataclasses
 import gzip
 import os
 import pathlib
+import subprocess
+import threading
 
 import numpy as np
 import pytest
@@ -164,3 +166,46 @@ def test_native_libraries_are_separate_and_coexist():
     b = jnative.get_lib()._name
     assert os.path.basename(a) == "libsmrtorch_native.so"
     assert os.path.realpath(a) != os.path.realpath(b)
+
+
+def test_native_build_is_shared_by_threads(tmp_path, monkeypatch):
+    """Two threads load the native library from a cold build directory:
+    the second arrives while the first is compiling and waits for that
+    build (a second thread once found the build started, got None and
+    took the numpy paths).  The compiler call is held until the second
+    thread has returned or 2 s have passed, so without the loader's lock
+    the second thread's early return shows every time."""
+    monkeypatch.delenv("SMR_NO_NATIVE", raising=False)
+    monkeypatch.setattr(tnative, "_BUILD_DIR", tmp_path / "native_torch")
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_TRIED", False)
+    compiling, second_back = threading.Event(), threading.Event()
+    compiles = []
+    real_run = subprocess.run
+
+    def run(cmd, *a, **kw):
+        compiles.append(cmd[0])
+        compiling.set()
+        second_back.wait(2)
+        return real_run(cmd, *a, **kw)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    got = {}
+
+    def load(name, after=None):
+        if after is not None:
+            after.wait(60)
+        got[name] = tnative.get_lib()
+        if name == "second":
+            second_back.set()
+
+    ths = [threading.Thread(target=load, args=("first",)),
+           threading.Thread(target=load, args=("second", compiling))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(300)
+    assert not any(t.is_alive() for t in ths)
+    assert compiles == ["g++"]
+    assert got["first"] is not None and got["second"] is got["first"]
+    assert (tmp_path / "native_torch" / "libsmrtorch_native.so").exists()

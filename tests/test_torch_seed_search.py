@@ -207,6 +207,45 @@ def test_caps_take_the_host_prober_with_a_warning(synth, capsys):
         talign._make_searcher(part, opts, "meta")
 
 
+def test_threads_build_one_searcher_a_part(synth, monkeypatch):
+    """Read shards reach _make_searcher together: the second waits for
+    the first's searcher (its tables on the device) and gets it, rather
+    than building and uploading its own.  The first build is held until
+    the second call has returned or 2 s have passed."""
+    import threading
+    part = tbuilder.build_index(synth[0]).parts[0]
+    opts = talign.Opts(device_probe=True)
+    building, second_back = threading.Event(), threading.Event()
+    built = []
+
+    class Slow(tss.DeviceSeedSearcher):
+        def __init__(self, *a, **kw):
+            built.append(1)
+            building.set()
+            second_back.wait(2)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(tss, "DeviceSeedSearcher", Slow)
+    got = {}
+
+    def make(name, after=None):
+        if after is not None:
+            after.wait(60)
+        got[name] = talign._make_searcher(part, opts, "cpu")
+        if name == "second":
+            second_back.set()
+
+    ths = [threading.Thread(target=make, args=("first",)),
+           threading.Thread(target=make, args=("second", building))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(60)
+    assert not any(t.is_alive() for t in ths)
+    assert built == [1]
+    assert isinstance(got["first"], Slow) and got["second"] is got["first"]
+
+
 def test_cli_device_probe_matches_jax_cli(tmp_path, monkeypatch):
     """Both CLIs with -device_probe (the port on cpu: the plain probe and
     sw_fused_plain) write the same reports."""
