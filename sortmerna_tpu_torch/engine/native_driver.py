@@ -89,20 +89,9 @@ class NativeCandidateEngine:
 
     def close(self):
         if self.h:
-            from ..util import TIMERS, timers_enabled
+            from ..util import timers_enabled
             if timers_enabled():
-                t9 = np.zeros(9, np.float64)
-                self.lib.cand_timers(self.h, t9.ctypes.data)
-                for k, v, c in (("cpp_build", t9[0], 1),
-                                ("cpp_advance", t9[1], 1),
-                                ("cpp_lis", t9[2], int(t9[4])),
-                                ("cpp_traceback", t9[3], int(t9[5])),
-                                ("cpp_triples", t9[6] / 1e9, int(t9[6])),
-                                ("sw_jobs_scored", 0.0, int(t9[7])),
-                                ("sw_jobs_consumed", 0.0, int(t9[8]))):
-                    e = TIMERS.setdefault(k, [0.0, 0])
-                    e[0] += float(v)
-                    e[1] += c
+                native.tally_sw_counts(self.h)
             self.lib.cand_destroy(self.h)
             self.h = None
 

@@ -371,27 +371,8 @@ class NativePartDriver:
     # ------------------------------------------------------------------
     def close(self):
         if self.h:
-            from ..util import TIMERS, timers_enabled
+            from ..util import timers_enabled
             if timers_enabled():
-                t9 = np.zeros(9, np.float64)
-                self.lib.cand_timers(self.heng, t9.ctypes.data)
-                d9 = np.zeros(9, np.float64)
-                self.lib.trav_timers(self.h, d9.ctypes.data)
-                for k, v, c in (("cpp_build", t9[0], 1),
-                                ("cpp_advance", t9[1], 1),
-                                ("cpp_lis", t9[2], int(t9[4])),
-                                ("cpp_traceback", t9[3], int(t9[5])),
-                                ("cpp_triples", t9[6] / 1e9, int(t9[6])),
-                                ("sw_jobs_scored", 0.0, int(t9[7])),
-                                ("sw_jobs_consumed", 0.0, int(t9[8])),
-                                ("drv_pack", d9[0], 1),
-                                ("drv_enum", d9[1], int(d9[6])),
-                                ("drv_probe", d9[2], int(d9[7])),
-                                ("drv_attr", d9[3], 1),
-                                ("drv_start", d9[4], 1),
-                                ("drv_adv", d9[5], int(d9[8]))):
-                    e = TIMERS.setdefault(k, [0.0, 0])
-                    e[0] += float(v)
-                    e[1] += c
+                native.tally_sw_counts(self.heng)
             self.lib.trav_destroy(self.h)
             self.h = None

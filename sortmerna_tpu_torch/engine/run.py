@@ -24,6 +24,7 @@ from ..index.builder import BuiltIndex, build_index
 from ..io.fastx import iter_fastx
 from ..options import RunOptions
 from ..stats.refstats import Refstats, compute_refstats
+from ..util import spanned, timed
 from .align import align_part, load_part_refs
 from .candidates import Opts, PartContext, Readstats
 from .read import ReadSeq, ReadState
@@ -42,6 +43,7 @@ class RunContext:
     _tmp: object = None             # holds a TemporaryDirectory alive
 
 
+@spanned("prepare")
 def prepare(opts: RunOptions) -> RunContext:
     opts.finalize()
     from ..io.feed import LazyReads, ReadFeed
@@ -51,9 +53,10 @@ def prepare(opts: RunOptions) -> RunContext:
         import tempfile
         tmp = tempfile.TemporaryDirectory(prefix="smr_readb_")
         readb = tmp.name
-    feed = ReadFeed(opts.reads_files, readb,
-                    threads=max(1, opts.num_proc_thread))
-    reads = LazyReads(feed)
+    with timed("feed"):
+        feed = ReadFeed(opts.reads_files, readb,
+                        threads=max(1, opts.num_proc_thread))
+        reads = LazyReads(feed)
     readstats = Readstats(len(opts.ref_files))
     readstats.all_reads_count = feed.n
     readstats.all_reads_len = feed.total_len
@@ -61,16 +64,18 @@ def prepare(opts: RunOptions) -> RunContext:
     readstats.max_read_len = feed.max_len
 
     from ..index.artifact import build_or_load
-    indexes = [build_or_load(p, opts.idx_dir or None, opts.interval,
-                             opts.max_pos, opts.max_file_size,
-                             seed_win_len=opts.seed_win_len)
-               for p in opts.ref_files]
+    with timed("index_load"):
+        indexes = [build_or_load(p, opts.idx_dir or None, opts.interval,
+                                 opts.max_pos, opts.max_file_size,
+                                 seed_win_len=opts.seed_win_len)
+                   for p in opts.ref_files]
 
-    refstats = compute_refstats(
-        indexes, readstats.all_reads_count, readstats.all_reads_len,
-        opts.evalue, opts.match, opts.mismatch, opts.gap_open, opts.gap_ext,
-        gumbel_override=opts.gumbel_override,
-        cache_dir=opts.idx_dir or None)
+    with timed("refstats"):
+        refstats = compute_refstats(
+            indexes, readstats.all_reads_count, readstats.all_reads_len,
+            opts.evalue, opts.match, opts.mismatch, opts.gap_open,
+            opts.gap_ext, gumbel_override=opts.gumbel_override,
+            cache_dir=opts.idx_dir or None)
 
     states = [ReadState() for _ in range(len(reads))]
     for st in states:
@@ -101,6 +106,7 @@ def prepare(opts: RunOptions) -> RunContext:
                       eopts, feed=feed, _tmp=tmp)
 
 
+@spanned("run_align")
 def run_align(ctx: RunContext, sw_backend=None, batch_size: int = 100000,
               journal=None, device=None) -> None:
     """The align task (processor.cpp:173-285).
@@ -187,8 +193,7 @@ def run_align(ctx: RunContext, sw_backend=None, batch_size: int = 100000,
                 # its import arrays without walking the objects
                 fresh = (idx_num == 0 and part_num == 0
                          and not done_units)
-                from ..util import timed as _t
-                with _t("align_part"):
+                with timed("align_part"):
                     align_part(batch, bstates, part, pctx,
                                ctx.engine_opts, skips, sw_backend,
                                ctx.readstats, batch=rbatch,
@@ -196,8 +201,7 @@ def run_align(ctx: RunContext, sw_backend=None, batch_size: int = 100000,
                 if journal is not None:
                     journal.append(idx_num, part_num, b0, bstates,
                                    ctx.readstats)
-    from ..util import timed as _t2
-    with _t2("cigar_mat"):
+    with timed("cigar_mat"):
         materialize_cigars(ctx)
 
 
@@ -324,6 +328,7 @@ def _report_reads(ctx: RunContext):
     return reads
 
 
+@spanned("run_postprocess")
 def run_postprocess(ctx: RunContext,
                     otu_parts: Optional[list] = None) -> Dict[str, list]:
     """denovo_stats + fill_otu_map (processor.cpp:368-438,
@@ -370,6 +375,7 @@ def _pairs(ctx: RunContext):
         yield (reads[i:i + step], ctx.states[i:i + step])
 
 
+@spanned("run_reports")
 def run_reports(ctx: RunContext, otu_map: Dict[str, list], *,
                 part_sections: bool = False,
                 sam_header_out: bool = True) -> None:
@@ -430,56 +436,60 @@ def run_reports(ctx: RunContext, otu_map: Dict[str, list], *,
 
     # single pass for fastx/other/denovo (output.cpp:126-144, 234-236)
     if fastx or other or denovo:
-        from ..reports.fastx import is_denovo_read
-        for reads, states in _pairs(ctx):
-            if fastx:
-                fastx.append(reads, states)
-            if other:
-                other.append(reads, states)
-            if denovo:
-                if any(is_denovo_read(s) for s in states):
-                    denovo.append_denovo(reads, states)
-        for rep in (fastx, other, denovo):
-            if rep:
-                rep.close()
+        with timed("reports_fastx"):
+            from ..reports.fastx import is_denovo_read
+            for reads, states in _pairs(ctx):
+                if fastx:
+                    fastx.append(reads, states)
+                if other:
+                    other.append(reads, states)
+                if denovo:
+                    if any(is_denovo_read(s) for s in states):
+                        denovo.append_denovo(reads, states)
+            for rep in (fastx, other, denovo):
+                if rep:
+                    rep.close()
 
     # per-part passes for blast/sam (output.cpp:146-149)
     if opts.is_blast or opts.is_sam:
-        reads = _report_reads(ctx)
-        from ..reports.cigar_stats import precompute_part_stats
-        g = 0
-        for idx_num, built in enumerate(ctx.indexes):
-            for part_num in range(len(built.parts)):
-                g += 1
-                if part_sections:
-                    if opts.is_blast:
-                        blast_f = op(
-                            opts.aligned_pfx + f".g{g:04d}.blast")
-                    if opts.is_sam:
-                        sam_f = op(opts.aligned_pfx + f".g{g:04d}.sam")
-                ref_seqs, ref_headers = part_ref_context(
-                    ctx, idx_num, part_num)
-                precompute_part_stats(ctx, idx_num, part_num, ref_seqs)
-                for read, st in zip(reads, ctx.states):
-                    if blast_f:
-                        blast_f.write(blast_for_read(
-                            read, st.alignments, ref_headers, ref_seqs,
-                            ctx.refstats, idx_num, part_num,
-                            opts.blast_format, opts.blastops,
-                            opts.is_print_all_reads))
-                    if sam_f:
-                        sam_f.write(sam_for_read(
-                            read, st.alignments, ref_headers, ref_seqs,
-                            idx_num, part_num, opts.is_print_all_reads))
-                if part_sections:
-                    for f in (blast_f, sam_f):
-                        if f:
-                            f.close()
-                    blast_f = sam_f = None
-        for f in (blast_f, sam_f):
-            if f:
-                f.close()
+        with timed("reports_blast"):
+            reads = _report_reads(ctx)
+            from ..reports.cigar_stats import precompute_part_stats
+            g = 0
+            for idx_num, built in enumerate(ctx.indexes):
+                for part_num in range(len(built.parts)):
+                    g += 1
+                    if part_sections:
+                        if opts.is_blast:
+                            blast_f = op(
+                                opts.aligned_pfx + f".g{g:04d}.blast")
+                        if opts.is_sam:
+                            sam_f = op(opts.aligned_pfx + f".g{g:04d}.sam")
+                    ref_seqs, ref_headers = part_ref_context(
+                        ctx, idx_num, part_num)
+                    precompute_part_stats(ctx, idx_num, part_num, ref_seqs)
+                    for read, st in zip(reads, ctx.states):
+                        if blast_f:
+                            blast_f.write(blast_for_read(
+                                read, st.alignments, ref_headers, ref_seqs,
+                                ctx.refstats, idx_num, part_num,
+                                opts.blast_format, opts.blastops,
+                                opts.is_print_all_reads))
+                        if sam_f:
+                            sam_f.write(sam_for_read(
+                                read, st.alignments, ref_headers, ref_seqs,
+                                idx_num, part_num, opts.is_print_all_reads))
+                    if part_sections:
+                        for f in (blast_f, sam_f):
+                            if f:
+                                f.close()
+                        blast_f = sam_f = None
+            for f in (blast_f, sam_f):
+                if f:
+                    f.close()
 
+
+@spanned("run_all")
 def run_all(opts: RunOptions, sw_backend=None,
             batch_size: int = 100000, device=None) -> RunContext:
     """Full task dispatch (main.cpp:83-112).
@@ -516,6 +526,12 @@ def run_all(opts: RunOptions, sw_backend=None,
             return ctx.reads.ids()
         return [r.id for r in ctx.reads]
 
+    def save_state():
+        with timed("state_save"):
+            db.save_states(read_ids(), ctx.states)
+            db.save_readstats(readfiles_key(opts.reads_files),
+                              ctx.readstats)
+
     if db is not None and task in (1, 2):
         # restore states from a previous align task
         saved = db.load_states()
@@ -533,9 +549,7 @@ def run_all(opts: RunOptions, sw_backend=None,
         run_align(ctx, sw_backend=sw_backend, journal=journal,
                   batch_size=batch_size, device=device)
         if db is not None:
-            db.save_states(read_ids(), ctx.states)
-            db.save_readstats(readfiles_key(opts.reads_files),
-                              ctx.readstats)
+            save_state()
             journal.remove()    # subsumed by the consolidated state
 
     if task in (1, 3, 4):
@@ -546,10 +560,9 @@ def run_all(opts: RunOptions, sw_backend=None,
             os.makedirs(out_dir, exist_ok=True)
             write_otu_map(otu_map, os.path.join(out_dir, "otu_map.txt"))
         if db is not None:
-            db.save_states(read_ids(), ctx.states)
-            db.save_readstats(readfiles_key(opts.reads_files),
-                              ctx.readstats)
-        write_summary(opts, ctx.refstats, ctx.readstats, len(otu_map))
+            save_state()
+        with timed("summary"):
+            write_summary(opts, ctx.refstats, ctx.readstats, len(otu_map))
 
     if task in (2, 4):
         run_reports(ctx, otu_map)

@@ -23,6 +23,7 @@ import os
 import pickle
 from typing import Dict, List, Optional
 
+from ..util import timed
 from .candidates import Readstats
 from .read import Alignment, ReadState
 
@@ -148,9 +149,10 @@ class AlignJournal:
 
     def append(self, idx_num: int, part_num: int, b0: int,
                states: List[ReadState], readstats: Readstats) -> None:
-        self._write(
-            {"idx": idx_num, "part": part_num, "b0": b0,
-             "states": states, "readstats": dict(readstats.__dict__)})
+        with timed("journal_append"):
+            self._write(
+                {"idx": idx_num, "part": part_num, "b0": b0,
+                 "states": states, "readstats": dict(readstats.__dict__)})
 
     def scan(self):
         """Yield journal records in order, stopping at a torn tail."""

@@ -21,6 +21,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..util import tally
+
 _SRC_DIR = pathlib.Path(__file__).resolve().parent
 _BUILD_DIR = _SRC_DIR.parent.parent / "build" / "native_torch"
 _LIB: Optional[ctypes.CDLL] = None
@@ -129,7 +131,8 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.cand_stat_num_dbs.argtypes = [ctypes.c_void_p]
     lib.cand_stat_dbs.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p]
-    lib.cand_timers.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.cand_sw_counts.restype = None
+    lib.cand_sw_counts.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.cand_start_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_int32] + [ctypes.c_void_p] * 8
     lib.gumbel_island.restype = ctypes.c_int64
@@ -147,7 +150,6 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.trav_pump.restype = ctypes.c_int32
     lib.trav_pump.argtypes = [ctypes.c_void_p]
     lib.trav_export.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.trav_timers.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.cand_set_reads.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.cand_set_strand.argtypes = [ctypes.c_void_p, ctypes.c_int32]
     lib.feed_scan_fasta.restype = ctypes.c_int64
@@ -205,6 +207,16 @@ def get_lib():
 
 def have_native() -> bool:
     return _build() is not None
+
+
+def tally_sw_counts(engine) -> None:
+    """Add a candidate engine's SW job counts to the stage timers' count
+    slots: ``sw_jobs_scored``, the jobs the device scored, and
+    ``sw_jobs_consumed``, the results a read's FSM applied."""
+    out = np.zeros(2, np.int64)
+    _build().cand_sw_counts(engine, out.ctypes.data)
+    tally("sw_jobs_scored", count=int(out[0]))
+    tally("sw_jobs_consumed", count=int(out[1]))
 
 
 def traceback_batch(refs: List[np.ndarray], queries: List[np.ndarray],

@@ -30,8 +30,6 @@
 namespace {
 
 using smr::Engine;
-using smr::Scratch;
-using smr::now_s;
 
 // buffer-table slots for trav_create (mirrored in engine/part_driver.py)
 enum Buf {
@@ -104,11 +102,6 @@ struct Driver {
 
     // probe scratch (reused across passes)
     std::vector<int64_t> w1v, w2v, pb_read, pb_pos, out_win, out_id;
-
-    // stage timers
-    double t_pack = 0, t_enum = 0, t_probe = 0, t_attr = 0, t_start = 0,
-           t_adv = 0;
-    int64_t n_windows = 0, n_probe_hits = 0, n_passes = 0;
 };
 
 static int64_t ilen(const Driver* d, int32_t ord) {
@@ -119,11 +112,10 @@ static int64_t ilen(const Driver* d, int32_t ord) {
 // engine/align.py): values spanning read boundaries are garbage but only
 // in-read window starts are ever indexed.
 static void pack_p9(Driver* d, const uint8_t* concat03) {
-    double t0 = now_s();
     int64_t total = d->reads_off[d->n_reads] - d->base;
     int64_t n = total - d->pw + 1;
     d->p9.resize(total > 0 ? total : 0);
-    if (n <= 0) { d->t_pack += now_s() - t0; return; }
+    if (n <= 0) return;
     const uint64_t mask = (d->pw >= 32) ? ~0ull
                           : ((1ull << (2 * d->pw)) - 1);
     const uint8_t* src = concat03 + d->base;
@@ -132,7 +124,6 @@ static void pack_p9(Driver* d, const uint8_t* concat03) {
         acc = ((acc << 2) | src[i]) & mask;
         if (i >= d->pw - 1) d->p9[i - d->pw + 1] = (int64_t)acc;
     }
-    d->t_pack += now_s() - t0;
 }
 
 static void strand_init(Driver* d) {
@@ -192,11 +183,9 @@ static void apply_done(Driver* d) {
 // Enumerate this pass's unsearched windows, probe them, attribute hits,
 // and start the engine FSMs of reads at the seed threshold.
 static void run_pass_prefix(Driver* d) {
-    ++d->n_passes;
     const int64_t lnwin = d->ip[P_LNWIN];
     const int64_t pw = d->pw;
 
-    double t0 = now_s();
     d->w1v.clear(); d->w2v.clear();
     d->pb_read.clear(); d->pb_pos.clear();
     // NOTE: threading this loop (and pack_p9) over P_THREADS was
@@ -217,12 +206,9 @@ static void run_pass_prefix(Driver* d) {
             d->pb_pos.push_back(pos);
         }
     }
-    d->t_enum += now_s() - t0;
     int64_t nw = (int64_t)d->w1v.size();
-    d->n_windows += nw;
 
     if (nw) {
-        double t1 = now_s();
         int64_t cap = std::max<int64_t>(4 * nw, 1024);
         int64_t n;
         for (;;) {
@@ -261,14 +247,11 @@ static void run_pass_prefix(Driver* d) {
             }
             cap = -n + 16;
         }
-        d->t_probe += now_s() - t1;
-        d->n_probe_hits += n;
 
         // attribute: one hit_seeds increment per window with >=1 id
         // (paralleltraversal.cpp:242-249); append (kid, win_pos) to the
         // read's accumulated strand hits (probe output is window-ordered,
         // so per-read order matches the sequential scan)
-        double t2 = now_s();
         int64_t prev_w = -1;
         for (int64_t j = 0; j < n; ++j) {
             int64_t w = d->out_win[j];
@@ -277,12 +260,10 @@ static void run_pass_prefix(Driver* d) {
             d->hit_kids[ord].push_back(d->out_id[j]);
             d->hit_wins[ord].push_back(d->pb_pos[w]);
         }
-        d->t_attr += now_s() - t2;
     }
 
     // eligible reads run their candidate FSMs over the full accumulated
     // strand hits (engine/align.py trav_items semantics)
-    double t3 = now_s();
     const int64_t num_seeds = d->ip[P_NUM_SEEDS];
     d->elig.clear();
     for (int32_t ord : d->la)
@@ -327,13 +308,11 @@ static void run_pass_prefix(Driver* d) {
                          kids.data(), wins.data(), st_off.data(),
                          scs.data(), ixs.data(), state5.data());
     }
-    d->t_start += now_s() - t3;
 }
 
 // Collect this pass's FSM search flags and advance the pass scheduler
 // (paralleltraversal.cpp:259-283 via engine/align.py tables).
 static void collect_and_advance(Driver* d) {
-    double t0 = now_s();
     std::vector<int32_t> next;
     next.reserve(d->la.size());
     // reads whose FSM ran and aligned (search=false) stop searching
@@ -352,7 +331,6 @@ static void collect_and_advance(Driver* d) {
     }
     d->la.swap(next);
     d->elig.clear();
-    d->t_adv += now_s() - t0;
 }
 
 }  // namespace
@@ -479,17 +457,6 @@ void trav_export(void* h, int32_t* out) {
         r[6] = d->is_done[i];
         r[7] = (f.managed ? 1 : 0) | (d->touched[i] ? 2 : 0);
     }
-}
-
-// stage timers: pack, enum, probe, attr, start, adv, n_windows,
-// n_probe_hits, n_passes
-void trav_timers(void* h, double* out9) {
-    Driver* d = (Driver*)h;
-    out9[0] = d->t_pack; out9[1] = d->t_enum; out9[2] = d->t_probe;
-    out9[3] = d->t_attr; out9[4] = d->t_start; out9[5] = d->t_adv;
-    out9[6] = (double)d->n_windows;
-    out9[7] = (double)d->n_probe_hits;
-    out9[8] = (double)d->n_passes;
 }
 
 }  // extern "C"

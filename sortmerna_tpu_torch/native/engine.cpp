@@ -29,7 +29,7 @@
 
 #include "engine_core.hpp"
 
-using namespace smr;   // Opts/Action/SpecJob/FSM/Engine/Scratch/now_s
+using namespace smr;   // Opts/Action/SpecJob/FSM/Engine
 
 extern "C" int traceback_one_c(const uint8_t*, int, const uint8_t*, int,
                                int, int, int, int, const int8_t*,
@@ -220,7 +220,7 @@ static long edges_of(const Opts& o, int readlen) {
 
 // One iteration of the window loop up to either an SW job (returns 1,
 // geometry stored in FSM) or candidate exhausted (returns 0).
-static int window_loop(Engine* e, FSM& f, Scratch& sc) {
+static int window_loop(Engine* e, FSM& f) {
     int readlen = read_len(e, f.ord);
     for (;;) {
         if (f.it >= f.hits_on_ref.size() || !f.is_search_candidates)
@@ -240,10 +240,7 @@ static int window_loop(Engine* e, FSM& f, Scratch& sc) {
 
         if (do_align && f.match_set.size() >= (size_t)e->o.num_seeds) {
             std::vector<uint32_t> lis;
-            double tl0 = now_s();
             find_lis(f.match_set, lis);
-            sc.t_lis += now_s() - tl0;
-            ++sc.n_lis;
             if (lis.size() >= (size_t)e->o.min_lis) {
                 long lcs_r = f.match_set[lis[0]].first;
                 long lcs_q = f.match_set[lis[0]].second;
@@ -277,7 +274,7 @@ static int window_loop(Engine* e, FSM& f, Scratch& sc) {
 // candidate's partial records+jobs are rolled back and the candidate
 // falls to the live window-loop path.
 static bool enumerate_candidate_jobs(Engine* e, FSM& f, size_t j,
-                                     size_t cap, Scratch& sc) {
+                                     size_t cap) {
     f.rec_begin[j] = f.recs.size();
     f.rec_end[j] = f.recs.size();
     if (j >= f.cands.size()) return true;
@@ -303,10 +300,7 @@ static bool enumerate_candidate_jobs(Engine* e, FSM& f, size_t j,
         IterRec rec{-1, (uint8_t)(push ? 1 : 0)};
         if (ms.size() >= (size_t)e->o.num_seeds) {
             std::vector<uint32_t> lis;
-            double tl0 = now_s();
             find_lis(ms, lis);
-            e->t_lis += now_s() - tl0;
-            ++e->n_lis;
             if (lis.size() >= (size_t)e->o.min_lis) {
                 SpecJob s;
                 s.cand_k = j;
@@ -346,13 +340,13 @@ static bool enumerate_candidate_jobs(Engine* e, FSM& f, size_t j,
 // back to the one-job-per-wave tail.
 constexpr size_t SPEC_CAP = 8192;
 
-static void speculate_all(Engine* e, FSM& f, Scratch& sc) {
+static void speculate_all(Engine* e, FSM& f) {
     size_t n = f.cands.size();
     f.rec_begin.assign(n, 0);
     f.rec_end.assign(n, 0);
     f.cand_full.assign(n, 1);
     for (size_t j = 0; j < n; ++j) {
-        if (!enumerate_candidate_jobs(e, f, j, SPEC_CAP, sc)) {
+        if (!enumerate_candidate_jobs(e, f, j, SPEC_CAP)) {
             for (size_t m = j; m < n; ++m) f.cand_full[m] = 0;
             break;
         }
@@ -369,7 +363,7 @@ static void post_result(Engine* e, FSM& f, int32_t score,
 // advance an FSM until it has a pending job or is done; the record walk
 // (phase 4) consumes filled speculative results inline and waits
 // in-place on the first unfilled one.
-static void advance(Engine* e, FSM& f, Scratch& sc) {
+static void advance(Engine* e, FSM& f) {
     for (;;) {
         if (f.phase == 0) {
             if (!start_candidate(e, f)) { f.phase = 3; return; }
@@ -398,7 +392,7 @@ static void advance(Engine* e, FSM& f, Scratch& sc) {
             continue;
         }
         if (f.phase == 1) {
-            if (window_loop(e, f, sc)) {
+            if (window_loop(e, f)) {
                 f.phase = 2;
                 return;
             }
@@ -454,7 +448,6 @@ static void apply_result(Engine* e, FSM& f,
         a.rl = re - rb + 1;
         a.ql = qe - qb + 1;
         a.band = a.rl > a.ql ? a.rl - a.ql + 1 : a.ql - a.rl + 1;
-        ++e->n_tb;
 
         if (!f.is_hit) {
             f.is_hit = true;
@@ -535,15 +528,15 @@ static void post_result(Engine* e, FSM& f, int32_t score,
 namespace smr {
 
 // FSM init + speculation + first advance for one read.  Touches ONLY
-// the FSM and the caller's Scratch, so batches can run it from worker
-// threads; returns true if the FSM is left waiting on device results.
+// the FSM, so batches can run it from worker threads; returns true if
+// the FSM is left waiting on device results.
 bool start_one(Engine* e, int32_t ord,
                const int64_t* kids, const int64_t* wins,
                int32_t n_hits,
                int32_t best, int32_t max_sw_count, int32_t is_hit,
                int32_t n_stored, const int32_t* stored_scores,
                const int32_t* stored_idxnums,
-               int32_t min_index, int32_t max_index, Scratch& sc) {
+               int32_t min_index, int32_t max_index) {
     FSM& f = e->fsms[ord];
     if (f.managed) {
         // carry the engine-authoritative read state through the reset
@@ -569,23 +562,10 @@ bool start_one(Engine* e, int32_t ord,
         f.managed = true;
     }
     f.ord = ord;
-    double tb0 = now_s();
     build_cands(e, f, kids, wins, n_hits);
-    sc.t_build += now_s() - tb0;
-    sc.n_trip += (int64_t)f.trip.size();
-    speculate_all(e, f, sc);
-    double ta0 = now_s();
-    advance(e, f, sc);
-    sc.t_adv += now_s() - ta0;
+    speculate_all(e, f);
+    advance(e, f);
     return f.phase == 2 || f.phase == 4;
-}
-
-void merge_scratch(Engine* e, const Scratch& sc) {
-    e->t_build += sc.t_build;
-    e->t_lis += sc.t_lis;
-    e->t_adv += sc.t_adv;
-    e->n_lis += sc.n_lis;
-    e->n_trip += sc.n_trip;
 }
 
 }  // namespace smr
@@ -655,18 +635,16 @@ void cand_start(void* h, int32_t ord,
                 const int32_t* stored_idxnums,
                 int32_t min_index, int32_t max_index) {
     Engine* e = (Engine*)h;
-    Scratch sc;
     if (start_one(e, ord, kids, wins, n_hits, best, max_sw_count, is_hit,
                   n_stored, stored_scores, stored_idxnums,
-                  min_index, max_index, sc))
+                  min_index, max_index))
         e->active.push_back(ord);
-    merge_scratch(e, sc);
 }
 
 // batched cand_start: one call for a whole pass, partitioned over
 // e->nthreads host threads (--threads; processor.cpp:248-253 is the
 // semantic model -- each thread owns a contiguous read slice).  Worker
-// threads touch only their own FSMs + a local Scratch; `active` is
+// threads touch only their own FSMs; `active` is
 // assembled in ordinal-sorted order afterward so wave composition is
 // deterministic regardless of thread count.  CSR layouts:
 //   hits: kids/wins [hit_off[i] .. hit_off[i+1])
@@ -682,7 +660,7 @@ void cand_start_batch(void* h, int32_t n, const int32_t* ords,
     int nt = e->nthreads;
     if (nt > n) nt = n > 0 ? n : 1;
 
-    auto run_slice = [&](int32_t lo, int32_t hi, Scratch& sc,
+    auto run_slice = [&](int32_t lo, int32_t hi,
                          std::vector<int32_t>& act) {
         for (int32_t i = lo; i < hi; ++i) {
             const int32_t* s5 = state5 + i * 5;
@@ -692,33 +670,27 @@ void cand_start_batch(void* h, int32_t n, const int32_t* ords,
                           (int32_t)(st_off[i + 1] - st_off[i]),
                           stored_scores + st_off[i],
                           stored_idxnums + st_off[i],
-                          s5[3], s5[4], sc))
+                          s5[3], s5[4]))
                 act.push_back(ords[i]);
         }
     };
 
     if (nt <= 1) {
-        Scratch sc;
         std::vector<int32_t> act;
-        run_slice(0, n, sc, act);
+        run_slice(0, n, act);
         e->active.insert(e->active.end(), act.begin(), act.end());
-        merge_scratch(e, sc);
         return;
     }
-    std::vector<Scratch> scs(nt);
     std::vector<std::vector<int32_t>> acts(nt);
     std::vector<std::thread> ths;
     for (int t = 0; t < nt; ++t) {
         int32_t lo = (int32_t)((int64_t)n * t / nt);
         int32_t hi = (int32_t)((int64_t)n * (t + 1) / nt);
-        ths.emplace_back(run_slice, lo, hi, std::ref(scs[t]),
-                         std::ref(acts[t]));
+        ths.emplace_back(run_slice, lo, hi, std::ref(acts[t]));
     }
     for (auto& th : ths) th.join();
-    for (int t = 0; t < nt; ++t) {
+    for (int t = 0; t < nt; ++t)
         e->active.insert(e->active.end(), acts[t].begin(), acts[t].end());
-        merge_scratch(e, scs[t]);
-    }
 }
 
 // total jobs of the next wave; builds the emission list consumed by
@@ -804,25 +776,20 @@ void cand_post(void* h, int32_t n, const int32_t* scores,
     }
     // every previously-active FSM advances: record walks consume their
     // freshly-filled speculative results inline
-    Scratch sc;
     for (int32_t ord : prev) {
         FSM& f = e->fsms[ord];
-        double ta0 = now_s();
-        advance(e, f, sc);
-        sc.t_adv += now_s() - ta0;
+        advance(e, f);
         if (f.phase == 2 || f.phase == 4) e->active.push_back(ord);
     }
-    merge_scratch(e, sc);
     e->emission.clear();
 }
 
-// stage timers: [t_build, t_adv, t_lis, t_tb, n_lis, n_tb, n_trip]
-void cand_timers(void* h, double* out9) {
+// SW jobs scored on the device and results a read's FSM applied:
+// [n_scored, n_consumed]
+void cand_sw_counts(void* h, int64_t* out2) {
     Engine* e = (Engine*)h;
-    out9[0] = e->t_build; out9[1] = e->t_adv; out9[2] = e->t_lis;
-    out9[3] = e->t_tb; out9[4] = (double)e->n_lis;
-    out9[5] = (double)e->n_tb; out9[6] = (double)e->n_trip;
-    out9[7] = (double)e->n_scored; out9[8] = (double)e->n_consumed;
+    out2[0] = e->n_scored;
+    out2[1] = e->n_consumed;
 }
 
 int32_t cand_num_active(void* h) {

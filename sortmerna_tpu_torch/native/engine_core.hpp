@@ -8,18 +8,12 @@
 
 #pragma once
 
-#include <chrono>
 #include <cstdint>
 #include <deque>
 #include <map>
 #include <vector>
 
 namespace smr {
-
-inline double now_s() {
-    return std::chrono::duration<double>(
-        std::chrono::steady_clock::now().time_since_epoch()).count();
-}
 
 struct Opts {
     int num_alignments, is_best, num_seeds, min_lis, edges, is_as_percent;
@@ -136,33 +130,21 @@ struct Engine {
     // readstats deltas
     int64_t d_num_aligned = 0;
     std::map<int, int64_t> d_matched_per_db;
-    // stage timers/counters: build, lis, traceback, advance; job/lis counts
-    double t_build = 0, t_lis = 0, t_tb = 0, t_adv = 0;
-    int64_t n_lis = 0, n_tb = 0, n_trip = 0;
     // device-work accounting: jobs scored on device vs results actually
     // consumed by a state machine (speculation waste monitor)
     int64_t n_scored = 0, n_consumed = 0;
     int nthreads = 1;   // host threads for batched FSM start (--threads)
 };
 
-// per-thread stat accumulators (merged into Engine after joins)
-struct Scratch {
-    double t_build = 0, t_lis = 0, t_adv = 0;
-    int64_t n_lis = 0, n_trip = 0;
-};
-
 // FSM init + speculation + first advance for one read (engine.cpp).
-// Touches only the FSM and the caller's Scratch, so batches can run it
-// from worker threads; returns true if the FSM is left waiting on
-// device results.
+// Touches only the FSM, so batches can run it from worker threads;
+// returns true if the FSM is left waiting on device results.
 bool start_one(Engine* e, int32_t ord,
                const int64_t* kids, const int64_t* wins, int32_t n_hits,
                int32_t best, int32_t max_sw_count, int32_t is_hit,
                int32_t n_stored, const int32_t* stored_scores,
                const int32_t* stored_idxnums,
-               int32_t min_index, int32_t max_index, Scratch& sc);
-
-void merge_scratch(Engine* e, const Scratch& sc);
+               int32_t min_index, int32_t max_index);
 
 }  // namespace smr
 

@@ -246,7 +246,7 @@ class TorchSwBackend:
                 ints[:len(ba), 1] = r_len[ba]
                 ints[:len(ba), 2] = minimal[ba]
                 buf[:, hq + hr:] = ints.view(np.uint8).reshape(B, 12)
-            with timed(f"sw_submit[{B}x{lq}x{lr}]"):
+            with timed("sw_submit[%dx%dx%d]", B, lq, lr):
                 if cuda:
                     # the copies, the launch and the event on the
                     # backend's device, whichever device is current
@@ -275,7 +275,8 @@ class TorchSwBackend:
             for ba, res in pending:
                 done, out = res[0], res[1]
                 if done is not None:
-                    done.synchronize()
+                    with timed("sw_wait"):          # the host on the card
+                        done.synchronize()
                 out = out.numpy()
                 score[ba] = out[0, :len(ba)]
                 beg_ref[ba] = out[1, :len(ba)]

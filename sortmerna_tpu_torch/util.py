@@ -1,15 +1,16 @@
-"""Structured logging + phase timing (the reference's observability layer:
+"""Structured logging + stage spans (the reference's observability layer:
 INFO/WARN/ERR macros with [function:line] stamps and chrono phase timers,
 common.hpp:123-218, trace documented in README.md:154-161)."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import os
 import sys
+import threading
 import time
-from typing import Optional
 
 
 def _stamp() -> str:
@@ -37,70 +38,68 @@ def ERR(*args) -> None:
           *args, file=sys.stderr, flush=True)
 
 
-def get_memory_kb() -> int:
-    """RSS probe (get_memory, common.hpp:135-146)."""
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1])
-    except OSError:
-        pass
-    return 0
-
-
-class PhaseTimer:
-    """Accumulates named phase durations; printable summary."""
-
-    def __init__(self):
-        self.totals = {}
-        self.counts = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            dt = time.time() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        return "\n".join(f"  {k:30s} {v:8.2f}s  x{self.counts[k]}"
-                         for k, v in rows)
-
-
-TIMER = PhaseTimer()
-
-
 # ---------------------------------------------------------------------------
-# lightweight stage timers (enabled with SMR_TIMERS=1; printed by bench)
+# stage spans (on with SMR_TIMERS=1; read by the benchmark's --trace 1 runs)
+#
+# ``timed(name)`` adds the span's seconds and one to ``TIMERS[name]`` and,
+# while a ``torch.profiler`` is running, lays the span on the trace as
+# ``smr.<name>``, on the clock of the device's kernels and copies.  Off, it
+# is one flag check that returns a shared no-op context: no clock read and
+# no ``record_function``, which costs a call even with no profiler running.
 
-TIMERS: dict = {}
+TIMERS: dict = {}                 # name -> [seconds, count]
 _TIMERS_ON = os.environ.get("SMR_TIMERS", "") not in ("", "0")
+_LOCK = threading.Lock()          # spans close on pump and worker threads
+_OFF = contextlib.nullcontext()
 
 
 def timers_enabled() -> bool:
     return _TIMERS_ON
 
 
-@contextlib.contextmanager
-def timed(name: str):
-    if not _TIMERS_ON:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
+def tally(name: str, seconds: float = 0.0, count: int = 1) -> None:
+    """Add to ``TIMERS[name]``: what a span does on exit, and how the
+    native engine's counters are harvested (a count, no seconds)."""
+    with _LOCK:
         e = TIMERS.setdefault(name, [0.0, 0])
-        e[0] += dt
-        e[1] += 1
+        e[0] += seconds
+        e[1] += count
 
 
-def timers_report() -> str:
-    return " ".join(f"{k}={v[0]:.2f}s/{v[1]}"
-                    for k, v in sorted(TIMERS.items()))
+class _Span:
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        self.rf = record_function("smr." + self.name)
+        self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.rf.__exit__(*exc)
+        tally(self.name, dt)
+        return False
+
+
+def timed(name: str, *args):
+    """A span named ``name``, or ``name % args`` (formatted only when
+    spans are on)."""
+    if not _TIMERS_ON:
+        return _OFF
+    return _Span(name % args if args else name)
+
+
+def spanned(name: str):
+    """Decorate a function with a ``timed(name)`` span around each call."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*a, **kw):
+            with timed(name):
+                return fn(*a, **kw)
+        return inner
+    return wrap
