@@ -211,12 +211,16 @@ def have_native() -> bool:
 
 def tally_sw_counts(engine) -> None:
     """Add a candidate engine's SW job counts to the stage timers' count
-    slots: ``sw_jobs_scored``, the jobs the device scored, and
-    ``sw_jobs_consumed``, the results a read's FSM applied."""
-    out = np.zeros(2, np.int64)
+    slots: ``sw_jobs_scored``, the jobs the device scored,
+    ``sw_jobs_consumed``, the results a read's FSM applied,
+    ``sw_fsm_starts``, the FSMs their start left waiting on the device,
+    and ``sw_fsm_rounds``, the (FSM, wave) pairs that offered jobs."""
+    out = np.zeros(4, np.int64)
     _build().cand_sw_counts(engine, out.ctypes.data)
     tally("sw_jobs_scored", count=int(out[0]))
     tally("sw_jobs_consumed", count=int(out[1]))
+    tally("sw_fsm_starts", count=int(out[2]))
+    tally("sw_fsm_rounds", count=int(out[3]))
 
 
 def traceback_batch(refs: List[np.ndarray], queries: List[np.ndarray],

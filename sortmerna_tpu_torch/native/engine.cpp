@@ -152,6 +152,8 @@ static void fill_hits_on_ref(const FSM& f, size_t j,
     }
 }
 
+static void enumerate_through(Engine* e, FSM& f, size_t j);
+
 // Start candidate k: returns true if the candidate loop should proceed
 // to the window loop / record walk, false if the whole call is done.
 // Record-path candidates skip the match_set machinery entirely.
@@ -165,6 +167,7 @@ static bool start_candidate(Engine* e, FSM& f) {
         if (--f.best < 1) return false;
     }
     f.cur_ref = max_ref;
+    enumerate_through(e, f, f.k);
     if (f.cand_full[f.k]) {
         f.it_rec = f.rec_begin[f.k];
         return true;
@@ -303,7 +306,6 @@ static bool enumerate_candidate_jobs(Engine* e, FSM& f, size_t j,
             find_lis(ms, lis);
             if (lis.size() >= (size_t)e->o.min_lis) {
                 SpecJob s;
-                s.cand_k = j;
                 s.ref = max_ref;
                 window_geometry(readlen, ref_len(e, (int)max_ref),
                                 ms[lis[0]].first, ms[lis[0]].second,
@@ -334,22 +336,47 @@ static bool enumerate_candidate_jobs(Engine* e, FSM& f, size_t j,
     return true;
 }
 
-// Per-read speculation budget.  Enumeration is host-cheap (~us per LIS)
-// and device compute is ~free relative to the per-wave link round-trip,
-// so the budget is set high enough that essentially no read ever falls
-// back to the one-job-per-wave tail.
+// Speculation depth.  A scored job costs the card about the same
+// whether a read applies it or not (a long read's job is about 1,450 x
+// 1,460 cells), and the host packs and uploads each one; offered all at
+// once, a read's jobs were 97.4% waste in the long-read benchmark (2.6
+// applied of about 105 scored a read).  So a read offers SPEC_ROUND0
+// jobs from its cursor in its first wave and twice its last round in
+// each later wave it still waits.  SPEC_CAP bounds the jobs a read
+// enumerates: past it, its remaining candidates replay through the live
+// window-loop path, one job a wave.
+constexpr size_t SPEC_ROUND0 = 4;
 constexpr size_t SPEC_CAP = 8192;
 
-static void speculate_all(Engine* e, FSM& f) {
+// Enumerate candidates up to and including j, in candidate order; the
+// one that hits the cap, and every later one, take the live path.
+static void enumerate_through(Engine* e, FSM& f, size_t j) {
     size_t n = f.cands.size();
-    f.rec_begin.assign(n, 0);
-    f.rec_end.assign(n, 0);
-    f.cand_full.assign(n, 1);
-    for (size_t j = 0; j < n; ++j) {
-        if (!enumerate_candidate_jobs(e, f, j, SPEC_CAP)) {
-            for (size_t m = j; m < n; ++m) f.cand_full[m] = 0;
-            break;
+    while (f.enum_k <= j && f.enum_k < n) {
+        if (!enumerate_candidate_jobs(e, f, f.enum_k, SPEC_CAP)) {
+            for (size_t m = f.enum_k; m < n; ++m) f.cand_full[m] = 0;
+            f.enum_k = n;
+            return;
         }
+        ++f.enum_k;
+    }
+}
+
+// The spec job a waiting record walk (phase 4) stands on.
+static size_t cursor_of(const FSM& f) {
+    return (size_t)f.recs[f.it_rec].spec;
+}
+
+// One past the last job of the FSM's next round: its `round` unfilled
+// jobs from `cursor` on, enumerating candidates as the round needs
+// them; short of that where the read's enumeration runs out.
+static size_t round_end(Engine* e, FSM& f, size_t cursor) {
+    size_t left = f.round, s = cursor;
+    for (;;) {
+        for (; s < f.spec.size() && left; ++s)
+            if (!f.spec[s].filled) --left;
+        if (!left || f.enum_k >= f.cands.size()) return s;
+        enumerate_through(e, f, f.enum_k);
     }
 }
 
@@ -527,9 +554,9 @@ static void post_result(Engine* e, FSM& f, int32_t score,
 
 namespace smr {
 
-// FSM init + speculation + first advance for one read.  Touches ONLY
-// the FSM, so batches can run it from worker threads; returns true if
-// the FSM is left waiting on device results.
+// FSM init + first advance for one read, with the enumeration of its
+// first round.  Touches ONLY the FSM, so batches can run it from worker
+// threads; returns true if the FSM is left waiting on device results.
 bool start_one(Engine* e, int32_t ord,
                const int64_t* kids, const int64_t* wins,
                int32_t n_hits,
@@ -563,8 +590,13 @@ bool start_one(Engine* e, int32_t ord,
     }
     f.ord = ord;
     build_cands(e, f, kids, wins, n_hits);
-    speculate_all(e, f);
+    size_t n = f.cands.size();
+    f.rec_begin.assign(n, 0);
+    f.rec_end.assign(n, 0);
+    f.cand_full.assign(n, 1);
+    f.round = SPEC_ROUND0;
     advance(e, f);
+    if (f.phase == 4) round_end(e, f, cursor_of(f));
     return f.phase == 2 || f.phase == 4;
 }
 
@@ -637,8 +669,10 @@ void cand_start(void* h, int32_t ord,
     Engine* e = (Engine*)h;
     if (start_one(e, ord, kids, wins, n_hits, best, max_sw_count, is_hit,
                   n_stored, stored_scores, stored_idxnums,
-                  min_index, max_index))
+                  min_index, max_index)) {
         e->active.push_back(ord);
+        ++e->n_starts;
+    }
 }
 
 // batched cand_start: one call for a whole pass, partitioned over
@@ -675,41 +709,42 @@ void cand_start_batch(void* h, int32_t n, const int32_t* ords,
         }
     };
 
-    if (nt <= 1) {
-        std::vector<int32_t> act;
-        run_slice(0, n, act);
-        e->active.insert(e->active.end(), act.begin(), act.end());
-        return;
-    }
     std::vector<std::vector<int32_t>> acts(nt);
-    std::vector<std::thread> ths;
-    for (int t = 0; t < nt; ++t) {
-        int32_t lo = (int32_t)((int64_t)n * t / nt);
-        int32_t hi = (int32_t)((int64_t)n * (t + 1) / nt);
-        ths.emplace_back(run_slice, lo, hi, std::ref(acts[t]));
+    if (nt <= 1) {
+        run_slice(0, n, acts[0]);
+    } else {
+        std::vector<std::thread> ths;
+        for (int t = 0; t < nt; ++t) {
+            int32_t lo = (int32_t)((int64_t)n * t / nt);
+            int32_t hi = (int32_t)((int64_t)n * (t + 1) / nt);
+            ths.emplace_back(run_slice, lo, hi, std::ref(acts[t]));
+        }
+        for (auto& th : ths) th.join();
     }
-    for (auto& th : ths) th.join();
-    for (int t = 0; t < nt; ++t)
-        e->active.insert(e->active.end(), acts[t].begin(), acts[t].end());
+    for (auto& act : acts) {
+        e->active.insert(e->active.end(), act.begin(), act.end());
+        e->n_starts += (int64_t)act.size();
+    }
 }
 
 // total jobs of the next wave; builds the emission list consumed by
-// cand_next_jobs / cand_post.  Record-path FSMs (phase 4) emit only
-// their unfilled speculative jobs from the current candidate onward
-// (the job the cursor waits on is among them -- no duplicate scoring);
-// live-path FSMs (phase 2) emit their one pending main job.  Spec
-// entries are visited from a monotone per-FSM low-water cursor: jobs of
-// skipped candidates (cand_k < f.k) are dead and never rescanned.
+// cand_next_jobs / cand_post.  Record-path FSMs (phase 4) emit one
+// round: their next `round` unfilled speculative jobs from the cursor
+// on (the job the cursor waits on first; jobs behind it are dead);
+// live-path FSMs (phase 2) emit their one pending main job.  Past the
+// speculation cap every candidate is live, so a live FSM has no
+// speculative job left to offer.
 int32_t cand_num_jobs(void* h) {
     Engine* e = (Engine*)h;
     e->emission.clear();
     for (int32_t ord : e->active) {
         FSM& f = e->fsms[ord];
-        if (f.phase == 2) e->emission.emplace_back(ord, -1);
-        while (f.spec_lo < f.spec.size()
-               && f.spec[f.spec_lo].cand_k < f.k)
-            ++f.spec_lo;
-        for (size_t s = f.spec_lo; s < f.spec.size(); ++s)
+        if (f.phase == 2) {
+            e->emission.emplace_back(ord, -1);
+            continue;
+        }
+        size_t c = cursor_of(f), end = round_end(e, f, c);
+        for (size_t s = c; s < end; ++s)
             if (!f.spec[s].filled)
                 e->emission.emplace_back(ord, (int32_t)s);
     }
@@ -757,6 +792,13 @@ void cand_post(void* h, int32_t n, const int32_t* scores,
     e->n_scored += n;
     for (int32_t i = 0; i < n; ++i) {
         auto& em = e->emission[i];
+        if (i == 0 || em.first != e->emission[i - 1].first) {
+            // an FSM's jobs lie together in the wave: one round each,
+            // and the next round twice as deep
+            ++e->n_rounds;
+            FSM& f = e->fsms[em.first];
+            f.round = std::min(2 * f.round, SPEC_CAP);
+        }
         if (em.second >= 0) {
             SpecJob& s = e->fsms[em.first].spec[em.second];
             s.score = scores[i];
@@ -784,12 +826,15 @@ void cand_post(void* h, int32_t n, const int32_t* scores,
     e->emission.clear();
 }
 
-// SW jobs scored on the device and results a read's FSM applied:
-// [n_scored, n_consumed]
-void cand_sw_counts(void* h, int64_t* out2) {
+// SW jobs scored on the device, results a read's FSM applied, FSMs
+// their start left waiting, and (FSM, wave) pairs that offered jobs:
+// [n_scored, n_consumed, n_starts, n_rounds]
+void cand_sw_counts(void* h, int64_t* out4) {
     Engine* e = (Engine*)h;
-    out2[0] = e->n_scored;
-    out2[1] = e->n_consumed;
+    out4[0] = e->n_scored;
+    out4[1] = e->n_consumed;
+    out4[2] = e->n_starts;
+    out4[3] = e->n_rounds;
 }
 
 int32_t cand_num_active(void* h) {

@@ -45,12 +45,21 @@ struct Action {
 // job's result is CONSUMED (heuristic 1 skips, early-stop, best-N
 // budget), never its geometry -- the match_set/begin_ref evolution after
 // an align attempt is the same pop step whether or not the attempt
-// happened (alignment.cpp:486-506 runs unconditionally).  So all of a
-// read's potential SW jobs are enumerated up front and scored in ONE
-// device wave; the sequential replay then consumes exactly the subset
-// the reference would have issued.
+// happened (alignment.cpp:486-506 runs unconditionally).  So a read's
+// SW jobs can be scored ahead of its walk; the sequential replay then
+// consumes exactly the subset the reference would have issued.
+//
+// Speculation runs in rounds.  A read's record walk waits on one
+// unfilled job, the cursor; everything behind it is dead.  Each wave
+// the FSM offers the next `round` unfilled jobs from the cursor onward
+// (enumerating further candidates as the round reaches past the ones
+// enumerated so far), and `round` doubles once that wave is scored.
+// A read that stops at its first accepted alignment or its best-N
+// budget costs about one round; one that walks every candidate reaches
+// full depth in about log2(jobs / first round) waves and scores at most
+// about twice what it walks.  Which jobs are scored never changes a
+// result: each pair's score is independent of its wave.
 struct SpecJob {
-    size_t cand_k;
     long aq, ar, head, tail, alen;
     uint32_t ref;
     int32_t score = -1, rb = -1, re = -1, qb = -1, qe = -1;
@@ -93,7 +102,12 @@ struct FSM {
     // sorted (seq,pos,win) triples; per-candidate contiguous subranges
     std::vector<uint64_t> trip;
     std::vector<size_t> cand_begin, cand_end;
-    size_t spec_lo = 0;   // emission low-water mark into spec
+    // speculation depth: candidates [0, enum_k) are enumerated (lazily,
+    // in candidate order, so each one's records and jobs are those a
+    // whole up-front enumeration gives); `round` is the most unfilled
+    // jobs the next wave may offer from the cursor
+    size_t enum_k = 0;
+    size_t round = 0;
     // pending job geometry
     long aq = 0, ar = 0, head = 0, tail = 0, alen = 0;
     uint32_t cur_ref = 0;
@@ -102,8 +116,9 @@ struct FSM {
                      // 4: record walk (waits in-place on unfilled spec)
     std::vector<SpecJob> spec;
     // enumeration records: per-candidate [rec_begin[k], rec_end[k])
-    // ranges into recs; cand_full[k]==0 means the candidate hit the
-    // speculation cap and replays through the live path instead.
+    // ranges into recs (valid for k < enum_k); cand_full[k]==0 means the
+    // candidate hit the speculation cap and replays through the live
+    // path instead.
     std::vector<IterRec> recs;
     std::vector<size_t> rec_begin, rec_end;
     std::vector<uint8_t> cand_full;
@@ -131,8 +146,10 @@ struct Engine {
     int64_t d_num_aligned = 0;
     std::map<int, int64_t> d_matched_per_db;
     // device-work accounting: jobs scored on device vs results actually
-    // consumed by a state machine (speculation waste monitor)
+    // consumed by a state machine (speculation waste monitor); FSMs left
+    // waiting by their start, and (FSM, wave) pairs that offered jobs
     int64_t n_scored = 0, n_consumed = 0;
+    int64_t n_starts = 0, n_rounds = 0;
     int nthreads = 1;   // host threads for batched FSM start (--threads)
 };
 

@@ -6,7 +6,8 @@ on ``SMR_TORCH_DEVICE=cpu``) into their own workdirs over one index
 directory; every file each writes must be byte-equal (gzip reports
 decompressed, aligned.sam without @PG, aligned.log without its command,
 pid and date lines): forward or reverse strand only, every alignment
-(``-num_alignments 0``) with and without ``-full_search``,
+(``-num_alignments 0``) with and without ``-full_search``, the first
+accepted alignment with the default ``-best`` (``-num_alignments 1``),
 ``-print_all_reads`` with BLAST and SAM, single-end fastq in and out,
 ``-zip-out``, and reads of 120, 500 and 2,000 nt against one long
 reference.  The port's CLI must also fail as the JAX CLI does (the same
@@ -77,6 +78,7 @@ MODES = {
     "fwd": ["-F", "-num_alignments", "2", "-no-best"] + REPORTS,
     "rev": ["-R", "-num_alignments", "2", "-no-best"] + REPORTS,
     "num_alignments_0": ["-num_alignments", "0"] + REPORTS,
+    "num_alignments_1": ["-num_alignments", "1"] + REPORTS,
     "full_search": ["-num_alignments", "0", "-full_search"] + REPORTS,
     "print_all_reads": ["-blast", "1", "-sam", "-print_all_reads"],
     "fastq_single": ["-fastx", "-other", "-blast", "1"],

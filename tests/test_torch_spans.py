@@ -49,7 +49,8 @@ def reader(metric):
 
 
 NEW_METRICS = ("part_driver.host_s_per_mnt", "sw.wait_s_per_mnt",
-               "sw.useful_share", "state_save.s_per_mnt")
+               "sw.useful_share", "state_save.s_per_mnt",
+               "sw.rounds_per_start")
 HOST_STAGES = ("trav_pump", "fsm_jobs", "fsm_post", "fsm_apply",
                "batch_enc", "state_import", "engine_init")
 
@@ -156,8 +157,8 @@ def test_timers_agree_with_the_trace(traced):
     for name, a, b, _ in got:
         tot[name] += (b - a) / 1e6
         cnt[name] += 1
-    spans_s = {k: v for k, v in timers.items()
-               if not k.startswith("sw_jobs_")}       # counts, not spans
+    spans_s = {k: v for k, v in timers.items()       # counts, not spans
+               if not k.startswith(("sw_jobs_", "sw_fsm_"))}
     for name, (s, n) in spans_s.items():
         assert cnt[name] == n, name
         # a span's two clocks are read microseconds apart at each end; a
@@ -177,6 +178,7 @@ def test_readers_of_the_spans(traced):
     assert host == pytest.approx(
         sum(timers[k][0] for k in HOST_STAGES if k in timers) / mnt)
     assert 0 < reader("sw.useful_share")(obs) <= 100
+    assert reader("sw.rounds_per_start")(obs) >= 1
     assert reader("state_save.s_per_mnt")(obs) * mnt == pytest.approx(
         timers["state_save"][0] + timers["journal_append"][0])
     assert timers["state_save"][1] == 2          # after align, after post
@@ -189,6 +191,39 @@ def test_readers_find_nothing_in_an_empty_run():
                sw_launches=0, sw_bound_s=0.0)
     for m in NEW_METRICS:
         assert reader(m)(obs) is None, m
+
+
+# the long-read cell's flags (benchmark/configs/rrna-filter-longread.json)
+CELL_FLAGS = ["-num_alignments", "1", "-fastx", "-aligned", "-other",
+              "-threads", "8"]
+
+
+def test_speculation_rounds(tmp_path, monkeypatch):
+    """A job of the long-read cell's kind: 24 reads of 1,300-1,600 nt,
+    all cut from members of 2 families of 20, the cell's flags.  With
+    every job of a read offered in its first wave the engine applied 46
+    of the 480 jobs it scored (``sw.useful_share`` 9.583%).  Offered in
+    rounds from each read's cursor it applies the same 46 of far fewer,
+    and every read that waited took at least one round."""
+    db, reads = str(tmp_path / "db.fa"), str(tmp_path / "r.fa")
+    seqs = testing.make_db(db, 40, n_families=2, len_range=(1300, 1600),
+                           seed=15)
+    testing.make_reads(reads, seqs, 24, len_range=(1300, 1600),
+                       frac_db=1.0, seed=16)
+    (tmp_path / "idx").mkdir()
+    monkeypatch.setenv("SMR_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("SMR_TPU_LOG", "0")
+    monkeypatch.setattr(util, "_TIMERS_ON", True)
+    monkeypatch.setattr(util, "TIMERS", {})
+    assert tcli.main(["-ref", db, "-reads", reads] + CELL_FLAGS
+                     + ["-idx-dir", str(tmp_path / "idx"),
+                        "-workdir", str(tmp_path / "wd")]) == 0
+    t = {k: list(v) for k, v in util.TIMERS.items()}
+    assert t["sw_jobs_consumed"][1] == 46
+    assert reader("sw.useful_share")(dict(timers=t)) >= 3 * 9.583
+    rounds, starts = t["sw_fsm_rounds"][1], t["sw_fsm_starts"][1]
+    assert rounds >= starts > 0
+    assert reader("sw.rounds_per_start")(dict(timers=t)) == rounds / starts
 
 
 def test_span_from_many_threads_loses_no_update(monkeypatch):
