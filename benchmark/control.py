@@ -5,8 +5,8 @@ no warm-up.  The benchmark's own runs never run it.
 
     python3 benchmark/control.py --workload <cell> NAME@SEED...
 
-NAME is ``sound`` or a ``faults.FAULTS`` entry; each reading prints one
-JSON line.
+NAME is ``sound`` or a ``faults.FAULTS`` or ``faults.PAIRED_FAULTS``
+entry; each reading prints one JSON line.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ def main(argv=None) -> int:
     spec["traffic"]["pool_jobs"] = 1
     for item in args.readings:
         name, seed = item.split("@")
-        fault = None if name == "sound" else faults.FAULTS[name]
+        fault = None if name == "sound" else \
+            {**faults.FAULTS, **faults.PAIRED_FAULTS}[name]
         try:
             res = run.run_cell(copy.deepcopy(spec), int(seed), 0.0, False,
                                fault=fault, warm_up=False)

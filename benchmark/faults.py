@@ -20,11 +20,25 @@ And one in the statistics:
 
 - ``gumbel_off``: the Gumbel lambda the program works with is 3% high
   and its K 30% high, and everything it derives from them follows.
+
+``PAIRED_FAULTS`` are those of a cell with pairs and several databases
+(each is a no-op on one database of single-end reads):
+
+- ``mate_apart``: under ``-paired_in``, mate 2 of every fifth pair that
+  aligned goes to other, and mate 1 alone to aligned.
+- ``first_gumbel``: ``aligned.log`` states the first database's lambda
+  and K in every database's block; the program works with its own.
+- ``coverage_swapped``: the log's coverage lines of the first two
+  databases are each other's.
+- ``mate2_dropped``: mate 2 of every pair is left out of the search
+  (marked done before each part, so it seeds nothing): half of the
+  batch left out, with the pairs still filed by mate 1's alignments.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 
 NONE = (0, -1, -1, -1, -1)      # a pair that aligned nowhere
 
@@ -101,3 +115,82 @@ FAULTS = {"saturate8": _sw(after=_saturate),
           "altered": _sw(after=_altered),
           "clip_end": _sw(before=_clip),
           "gumbel_off": gumbel_off(1.03, 1.3)}
+
+
+def _mate_apart():
+    @contextlib.contextmanager
+    def fault():
+        from sortmerna_tpu_torch.reports.fastx import FastxReport
+        append = FastxReport.append
+
+        def inner(self, reads, states):
+            if len(reads) == 2 and reads[0].read_num % 5 == 0 and \
+                    (states[0].is_hit or states[1].is_hit):
+                if self.other:
+                    self.files[-1].write(self._record(reads[1]))
+                else:
+                    self.files[0].write(self._record(reads[0]))
+                return
+            append(self, reads, states)
+        FastxReport.append = inner
+        try:
+            yield
+        finally:
+            FastxReport.append = append
+    return fault
+
+
+def _log(edit):
+    """Patches what ``aligned.log`` states, through copies of the
+    statistics handed to its writer."""
+    @contextlib.contextmanager
+    def fault():
+        from sortmerna_tpu_torch.reports import summary
+        text = summary.summary_text
+
+        def inner(opts, refstats, readstats, *a, **kw):
+            refstats, readstats = copy.copy(refstats), copy.copy(readstats)
+            edit(refstats, readstats)
+            return text(opts, refstats, readstats, *a, **kw)
+        summary.summary_text = inner
+        try:
+            yield
+        finally:
+            summary.summary_text = text
+    return fault
+
+
+def _first_gumbel(refstats, readstats):
+    refstats.gumbel = [refstats.gumbel[0]] * len(refstats.gumbel)
+
+
+def _coverage_swapped(refstats, readstats):
+    per = list(readstats.reads_matched_per_db)
+    per[0], per[1] = per[1], per[0]
+    readstats.reads_matched_per_db = per
+
+
+def _mate2_dropped():
+    @contextlib.contextmanager
+    def fault():
+        from sortmerna_tpu_torch.engine import run as run_mod
+        align_part = run_mod.align_part
+
+        def inner(reads, bstates, *a, states_fresh=False, **kw):
+            # reads come in pairs, mate 2 at odd places of every batch;
+            # the states are read from the objects, not made fresh
+            for st in bstates[1::2]:
+                st.is_done = True
+            return align_part(reads, bstates, *a, states_fresh=False, **kw)
+        run_mod.align_part = inner
+        try:
+            yield
+        finally:
+            run_mod.align_part = align_part
+    return fault
+
+
+PAIRED_FAULTS = {"mate_apart": _mate_apart(),
+                 "first_gumbel": _log(_first_gumbel),
+                 "coverage_swapped": _log(_coverage_swapped),
+                 "mate2_dropped": _mate2_dropped()}

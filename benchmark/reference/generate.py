@@ -1,13 +1,16 @@
 """Seeded synthetic rRNA databases and sample jobs, from parameter files.
 
-A configuration's database is a 16S-like FASTA in families (members a
-few percent apart), made from its own ``db_seed``.  A traffic mix is a
-JSON file of parameters that ``make_job`` reads: reads per job, the rRNA
-share, the length distribution and the error model of the rRNA reads.
-Every job of every seed has the same rRNA count, and the rRNA and the
-other reads each the same multiset of lengths (the distribution's
-quantiles; an rRNA read is at most its member's length); the seed
-decides the order, the members cut from, the positions and the errors.
+A configuration's database is a FASTA in families (members a few
+percent apart), made from its own ``db_seed``; or a list of such
+databases, each named, passed to the program as one ``-ref`` each in
+the list's order.  A traffic mix is a JSON file of parameters that
+``make_job`` (single-end) or ``make_pairs`` (with a ``paired`` entry)
+reads: reads or pairs per job, the rRNA share, the length distributions
+and the error model of the rRNA reads.  Every job of every seed has the
+same rRNA count, and the rRNA and the other reads each the same
+multiset of lengths (the distribution's quantiles; an rRNA read is at
+most its member's length); the seed decides the order, the members cut
+from, the positions and the errors.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import gzip
 import math
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -34,15 +37,27 @@ class Database:
         return int(sum(len(s) for s in self.seqs))
 
 
-def make_db(spec: dict) -> Database:
-    """``spec``: n_seqs, n_families, len_range, divergence, db_seed.
+SINGLE = "db"           # the file stem of a configuration's only database
+
+
+def make_db(spec: dict, prefix: str = "") -> Database:
+    """``spec``: n_seqs, n_families, len_range, divergence, db_seed, and
+    optionally gc, the share of G and C (uniform bases without it).
     Each member is a window of its family's base with divergence/2 of
     its positions redrawn, so two members are about ``divergence``
-    apart."""
+    apart.  Members are named ``<prefix>fam<f>_<i>``."""
     rng = np.random.default_rng(int(spec["db_seed"]))
+    gc = spec.get("gc")
+    p = None if gc is None else [(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2]
+
+    def bases_of(size):
+        if p is None:
+            return rng.integers(0, 4, size, dtype=np.uint8)
+        return rng.choice(4, size=size, p=p).astype(np.uint8)
+
     lo, hi = spec["len_range"]
     nf = int(spec["n_families"])
-    bases = rng.integers(0, 4, (nf, hi + 200), dtype=np.uint8)
+    bases = bases_of((nf, hi + 200))
     names, seqs = [], []
     for i in range(int(spec["n_seqs"])):
         fam = i % nf
@@ -51,10 +66,27 @@ def make_db(spec: dict) -> Database:
         s = bases[fam, off:off + ln].copy()
         pos = rng.choice(ln, size=int(ln * spec["divergence"] / 2),
                          replace=False)
-        s[pos] = rng.integers(0, 4, len(pos), dtype=np.uint8)
-        names.append(f"fam{fam}_{i}")
+        s[pos] = bases_of(len(pos))
+        names.append(f"{prefix}fam{fam}_{i}")
         seqs.append(s)
     return Database(names, seqs)
+
+
+def database_names(spec) -> List[str]:
+    """The names of a configuration's databases, in ``-ref`` order: a
+    single spec is the one database ``SINGLE``; a list holds specs that
+    each add a ``name``."""
+    return [SINGLE] if isinstance(spec, dict) else [d["name"] for d in spec]
+
+
+def make_databases(spec) -> List[Database]:
+    """A configuration's databases, in ``-ref`` order.  A single spec
+    gives members named as ``make_db`` names them; in a list each name,
+    with ``_``, prefixes its members' names, so that names stay unique
+    across databases."""
+    if isinstance(spec, dict):
+        return [make_db(spec)]
+    return [make_db(d, d["name"] + "_") for d in spec]
 
 
 def write_fasta(db: Database, path: str) -> None:
@@ -196,9 +228,102 @@ def make_job(db: Database, traffic: dict, seed: int, job: int,
     return Job(ids, seqs, is_rrna)
 
 
-def fastq_bytes(job: Job, seed: int, jobnum: int) -> bytes:
-    """The job as FASTQ text; quality strings drawn from the seed."""
-    rng = np.random.default_rng([int(seed) % (1 << 63), int(jobnum), 1])
+def _shares(counts: np.ndarray, n: int) -> np.ndarray:
+    """``n`` split in proportion to ``counts`` by largest remainders."""
+    want = n * np.asarray(counts, np.float64) / np.sum(counts)
+    out = np.floor(want).astype(np.int64)
+    out[np.argsort(out - want, kind="stable")[:n - int(out.sum())]] += 1
+    return out
+
+
+def _rrna_errors(rng, s: np.ndarray, model: dict) -> np.ndarray:
+    """``rrna_errors`` on one read, as ``make_job`` lays them on its
+    reads all at once: per-base errors, or ``subs`` substitutions at
+    positions drawn with replacement (one drawn twice changes once) and
+    an indel with probability ``indel_p``.  The model is the same; the
+    draws come in another order, since ``make_job``'s order fixes its
+    bytes."""
+    if "error_rate" in model:
+        return _per_base_errors(rng, s, model)
+    s = s.copy()
+    lo, hi = model["subs"]
+    pos = (rng.random(int(rng.integers(lo, hi + 1))) * len(s)).astype(
+        np.int64)
+    s[pos] = (s[pos] + rng.integers(1, 4, len(pos))) % 4
+    if rng.random() < model.get("indel_p", 0.0):
+        s = _indel(rng, s, model)
+    return s.astype(np.uint8)
+
+
+@dataclass
+class Pairs:
+    mates: Tuple[Job, Job]          # the two files' reads, pair i at i
+    is_rrna: np.ndarray             # bool per pair
+    db: np.ndarray                  # its database's index; -1: not rRNA
+
+
+def make_pairs(dbs: List[Database], names: List[str], traffic: dict,
+               seed: int, job: int, n_pairs: int = 0) -> Pairs:
+    """Job ``job`` of the pool that ``seed`` draws, paired-end:
+    ``n_pairs`` pairs (the traffic's ``reads_per_job`` by default).
+    Each fragment's length is drawn from ``paired.insert``.  rRNA
+    fragments are cut from a member (at most its length) of a database
+    chosen by the shares of ``rrna_mix`` (by database name; without it,
+    in proportion to each database's nt); the rest are uniform random
+    sequence.  A whole rRNA fragment is reverse-complemented with
+    probability 1/2.  Mate 1 is the fragment's first ``lengths`` bases,
+    mate 2 the reverse complement of its last, each at most the
+    fragment; ``rrna_errors`` applies to each rRNA mate on its own.
+    Every seed gives each database the same count of fragments."""
+    n = int(n_pairs or traffic["reads_per_job"])
+    rng = np.random.default_rng([int(seed) % (1 << 63), int(job)])
+    n_r = int(round(n * traffic["rrna_share"]))
+    is_rrna = np.zeros(n, bool)
+    is_rrna[rng.permutation(n)[:n_r]] = True
+    ins = dict(kind="mix", parts=[dict(share=1.0,
+                                       len=traffic["paired"]["insert"])])
+    frag = np.empty(n, np.int64)
+    frag[is_rrna] = rng.permutation(_quantiles(ins, n_r))
+    frag[~is_rrna] = rng.permutation(_quantiles(ins, n - n_r))
+    lens = [rng.permutation(_quantiles(traffic["lengths"], n))
+            for _ in range(2)]
+    mix = traffic.get("rrna_mix")
+    if mix and set(mix) - set(names):
+        raise ValueError(f"rrna_mix names no database: "
+                         f"{sorted(set(mix) - set(names))}")
+    weight = [mix.get(nm, 0.0) for nm in names] if mix else \
+        [d.total_len for d in dbs]
+    src = np.full(n, -1, np.int64)
+    src[is_rrna] = rng.permutation(np.repeat(np.arange(len(dbs)),
+                                             _shares(weight, n_r)))
+    model = traffic["rrna_errors"]
+    ids = [[b"j%d_r%d/%d" % (job, i, m) for i in range(n)] for m in (1, 2)]
+    seqs: List[List[np.ndarray]] = [[], []]
+    for i in range(n):
+        if src[i] >= 0:
+            db = dbs[src[i]]
+            member = db.seqs[int(rng.integers(0, len(db.seqs)))]
+            L = min(int(frag[i]), len(member))
+            off = int(rng.integers(0, len(member) - L + 1))
+            f = member[off:off + L]
+            if rng.random() < 0.5:
+                f = _revcomp(f)
+        else:
+            f = rng.integers(0, 4, int(frag[i]), dtype=np.uint8)
+        ends = (f[:min(int(lens[0][i]), len(f))],
+                _revcomp(f[len(f) - min(int(lens[1][i]), len(f)):]))
+        for m in (0, 1):
+            seqs[m].append(_rrna_errors(rng, ends[m], model)
+                           if src[i] >= 0 else ends[m])
+    return Pairs(tuple(Job(ids[m], seqs[m], is_rrna) for m in (0, 1)),
+                 is_rrna, src)
+
+
+def fastq_bytes(job: Job, seed: int, jobnum: int, stream: int = 1) -> bytes:
+    """The job as FASTQ text; quality strings drawn from the seed
+    (``stream`` 2 for a pair's second file)."""
+    rng = np.random.default_rng([int(seed) % (1 << 63), int(jobnum),
+                                 int(stream)])
     lens = np.array([len(s) for s in job.seqs])
     qual = QUAL[rng.choice(4, size=int(lens.sum()), p=QUAL_P)].tobytes()
     seq = ACGT[np.concatenate(job.seqs)].tobytes()

@@ -3,16 +3,18 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
                              --trace <0|1>
 
-A cell is a configuration (``configs/<name>.json``: the database, the
-CLI flags of the deployment, the limits of the comparison) under a
-traffic mix (``traffic/<name>.json``: the sample jobs), both named in
-``BENCHMARK.json``.  The unit of work is one sample job: one in-process
-call of ``sortmerna_tpu_torch.cli.main`` on its own input file and
-workdir, as a user runs one process per sample.  Jobs run back to back;
-the window ends at the first job boundary at or after ``--seconds``.
+A cell is a configuration (``configs/<name>.json``: the database, or a
+list of databases, the CLI flags of the deployment) under a traffic mix
+(``traffic/<name>.json``: the sample jobs, single-end or paired, and the
+limits of the comparison), both named in ``BENCHMARK.json``.  The unit
+of work is one sample job: one in-process call of
+``sortmerna_tpu_torch.cli.main`` with every database as a ``-ref`` and
+its own input file (or a pair's two) and workdir, as a user runs one
+process per sample.  Jobs run back to back; the window ends at the
+first job boundary at or after ``--seconds``.
 
 Set-up (``setup_s``): torch and the port imported, the CUDA context,
-the database, its index and Gumbel cache found in ``.cache/<config>/``
+the databases, their index and Gumbel cache found in ``.cache/<config>/``
 (made on the first run in a checkout), this run's pool of job files
 generated from the seed, and a warm-up run of the pool's first job
 (timed apart as well, on standard error).
@@ -23,9 +25,10 @@ kernel's bound at each fetch and profiles the window, and prints the
 per-layer metrics, each computed by ``metrics/<name>.py``.  After the
 window every job's outputs are judged against the plain reference
 (``reference/judge.py``), with the reference's own Gumbel lambda and K
-(``reference/gumbel.py``, made on the first run and kept in
-``.cache/<config>/``); the numbers compared, each beside its limit, are
-the last lines of standard error and the last key of the result.
+of each database (``reference/gumbel.py``, made on the first run and
+kept in ``.cache/<config>/``); the numbers compared, each beside its
+limit, are the last lines of standard error and the last key of the
+result.
 """
 
 from __future__ import annotations
@@ -145,22 +148,65 @@ def rss_peak_bytes(how: str) -> int:
 # the database and the jobs
 
 
-def ensure_database(config: dict, cache: str) -> str:
-    """The configuration's database file in ``cache``.  Its index and
-    Gumbel cache are built by the port into ``cache/idx`` during the
-    first run's warm-up job, after which ``ready`` is written; a run cut
-    short before that leaves the whole cache to be made again."""
-    db_path = os.path.join(cache, "db.fasta")
+def ensure_databases(config: dict, cache: str) -> list:
+    """The configuration's database files in ``cache``, in ``-ref``
+    order (``generate.database_names``).  Their index and Gumbel cache
+    are built by the port into ``cache/idx`` during the first run's
+    warm-up job, after which ``ready`` is written; a run cut short
+    before that leaves the whole cache to be made again."""
+    spec = config["database"]
+    paths = [os.path.join(cache, name + ".fasta")
+             for name in generate.database_names(spec)]
     if not os.path.exists(os.path.join(cache, "ready")):
         shutil.rmtree(cache, ignore_errors=True)
         os.makedirs(cache)
-        generate.write_fasta(generate.make_db(config["database"]), db_path)
-        log(f"database made into {cache}; the warm-up job builds its index")
-    return db_path
+        for db, path in zip(generate.make_databases(spec), paths):
+            generate.write_fasta(db, path)
+        log(f"{len(paths)} database(s) made into {cache}; the warm-up job "
+            "builds their index")
+    return paths
 
 
-def run_job(smr_main, db_path, reads, wd, idx, flags) -> None:
-    smr_main(["-ref", db_path, "-reads", reads] + list(flags)
+def gumbel_path(cache: str, db_path: str) -> str:
+    """Where the reference's Gumbel law of a database is kept:
+    ``ref_gumbel.json`` for a configuration's only database,
+    ``ref_gumbel_<name>.json`` for each of a list."""
+    stem = os.path.basename(db_path)[:-len(".fasta")]
+    return os.path.join(cache, "ref_gumbel.json" if stem == generate.SINGLE
+                        else f"ref_gumbel_{stem}.json")
+
+
+def make_pool(dbs: list, names: list, traffic: dict, seed: int,
+              tmp: str) -> list:
+    """The run's job files from the seed: per job (its files, the
+    generator's rRNA record per read or pair, its reads, its nt)."""
+    pool = []
+    for k in range(int(traffic["pool_jobs"])):
+        if "paired" in traffic:
+            got = generate.make_pairs(dbs, names, traffic, seed, k)
+            jobs, is_rrna = got.mates, got.is_rrna
+        elif len(dbs) == 1:
+            jobs = (generate.make_job(dbs[0], traffic, seed, k),)
+            is_rrna = jobs[0].is_rrna
+        else:
+            raise ValueError("single-end traffic reads one database; give "
+                             "the traffic a 'paired' entry")
+        files = []
+        for m, job in enumerate(jobs, 1):
+            path = os.path.join(tmp, f"job{k}.fq.gz" if len(jobs) == 1
+                                else f"job{k}_{m}.fq.gz")
+            generate.write_job(path, generate.fastq_bytes(job, seed, k, m))
+            files.append(path)
+        pool.append((files, is_rrna, sum(len(j.seqs) for j in jobs),
+                     sum(len(s) for j in jobs for s in j.seqs)))
+    return pool
+
+
+def run_job(smr_main, db_paths, reads, wd, idx, flags) -> None:
+    """One job: every database as a ``-ref`` and every reads file (a
+    pair's two) as a ``-reads``, in order."""
+    refs = [a for p in db_paths for a in ("-ref", p)]
+    smr_main(refs + [a for p in reads for a in ("-reads", p)] + list(flags)
              + ["-idx-dir", idx, "-workdir", wd])
 
 
@@ -298,23 +344,17 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     try:
         if fault is not None:
             patched.enter_context(fault())
-        db_path = ensure_database(config, cache)
+        db_paths = ensure_databases(config, cache)
         idx = os.path.join(cache, "idx")
-        db = generate.read_fasta(db_path)
-
-        pool = []              # (file, is_rrna, reads, nt): no sequences
-        for k in range(int(traffic["pool_jobs"])):
-            job = generate.make_job(db, traffic, seed, k)
-            path = os.path.join(tmp, f"job{k}.fq.gz")
-            generate.write_job(path, generate.fastq_bytes(job, seed, k))
-            pool.append((path, job.is_rrna, len(job.seqs),
-                         sum(len(s) for s in job.seqs)))
+        dbs = [generate.read_fasta(p) for p in db_paths]
+        pool = make_pool(dbs, generate.database_names(config["database"]),
+                         traffic, seed, tmp)
         # the warm-up is a whole job (the pool's first): a smaller one
         # leaves the first timed job slower (the host's allocator and the
         # pinned staging buffers grow to a job's size then)
         t = time.perf_counter()
         if warm_up or not os.path.exists(os.path.join(cache, "ready")):
-            run_job(smr_main, db_path, pool[0][0],
+            run_job(smr_main, db_paths, pool[0][0],
                     os.path.join(tmp, "wd_warm"), idx, flags)
             shutil.rmtree(os.path.join(tmp, "wd_warm"))
         if not os.path.exists(os.path.join(cache, "ready")):
@@ -337,19 +377,19 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         jobs, failed, t_start = [], 0, time.perf_counter()
         while True:
             k = len(jobs)
-            path, is_rrna, n, nt = pool[k % len(pool)]
+            files, is_rrna, n, nt = pool[k % len(pool)]
             wd = os.path.join(tmp, f"wd{k}")
             t = time.perf_counter()
             ru = resource.getrusage(resource.RUSAGE_SELF)
             try:
                 with (tracer.job_span() if tracer
                       else contextlib.nullcontext()):
-                    run_job(smr_main, db_path, path, wd, idx, flags)
+                    run_job(smr_main, db_paths, files, wd, idx, flags)
             except Exception:         # a job that fails ends the window
                 traceback.print_exc()
                 failed += 1
                 break
-            jobs.append(dict(fastq=path, out=os.path.join(wd, "out"),
+            jobs.append(dict(fastq=files, out=os.path.join(wd, "out"),
                              is_rrna=is_rrna, reads=n, nt=nt,
                              wall=time.perf_counter() - t,
                              rusage=rusage_since(ru)))
@@ -412,16 +452,21 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
+        gumbel_refs = []
+        for path, db in zip(db_paths, dbs):
+            t = time.perf_counter()
+            gumbel_refs.append(gumbel.cached(
+                gumbel_path(cache, path), judge.composition(db),
+                config["scoring"], config["gumbel_fit"], device=device))
+            log(f"the reference's Gumbel lambda {gumbel_refs[-1][0]:.6g}, "
+                f"K {gumbel_refs[-1][1]:.6g}"
+                + (f" of {os.path.basename(path)}" if len(dbs) > 1 else "")
+                + f" ({time.perf_counter() - t:.1f}s)")
         t = time.perf_counter()
-        gumbel_ref = gumbel.cached(
-            os.path.join(cache, "ref_gumbel.json"), judge.composition(db),
-            config["scoring"], config["gumbel_fit"], device=device)
-        log(f"the reference's Gumbel lambda {gumbel_ref[0]:.6g}, K "
-            f"{gumbel_ref[1]:.6g} ({time.perf_counter() - t:.1f}s)")
-        t = time.perf_counter()
-        nums = judge.judge(jobs, db, config["scoring"], config["evalue"],
-                           config["edges"], traffic["judge_sample"], seed,
-                           gumbel_ref, device=device)
+        nums = judge.judge(jobs, dbs, flags, config["scoring"],
+                           config["evalue"], config["edges"],
+                           traffic["judge_sample"], seed, gumbel_refs,
+                           device=device)
         limits = traffic["limits"]
         compared = {k: dict(value=nums[k], limit=limits[k]) for k in limits}
         correct = failed == 0 and all(v["value"] <= v["limit"]
@@ -429,6 +474,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         log(f"judged every read and all {nums['rows']} BLAST rows of "
             f"{len(jobs)} jobs, {nums['rows_checked']} rows by plain SW, in "
             f"{time.perf_counter() - t:.1f}s")
+        if "moved_max" in nums:
+            log(f"at most {nums['moved_max']} reads a job counted on an "
+                "earlier database than their row's")
         result = dict(correct=correct, attempted=len(jobs) + failed,
                       failed=failed,
                       metrics=metrics, device=result_device)
