@@ -93,7 +93,7 @@ class NativePartDriver:
             ctx._refs_concat = cached
         self.refs_data, self.refs_off = cached
 
-        from ..util import timed
+        from ..util import tally, timed, timers_enabled
         with timed("batch_enc"):
             # encodings cache on the batch (one native pass); the offs
             # slice view keeps ABSOLUTE offsets so sub-range drivers
@@ -129,29 +129,34 @@ class NativePartDriver:
                 scs = np.zeros(1, np.int32)
                 ixs = np.zeros(1, np.int32)
             else:
-                state5 = np.zeros((n, 5), np.int32)
-                hit_seeds = np.zeros(n, np.int32)
-                is_done = np.zeros(n, np.uint8)
-                st_cnt = np.zeros(n, np.int64)
-                sc_l: List[int] = []
-                ix_l: List[int] = []
-                for i, st in enumerate(states):
-                    state5[i, 0] = st.best
-                    state5[i, 1] = st.max_sw_count
-                    state5[i, 2] = st.is_hit
-                    state5[i, 3] = st.min_index
-                    state5[i, 4] = st.max_index
-                    hit_seeds[i] = st.hit_seeds
-                    is_done[i] = st.is_done
-                    if st.alignments:
-                        st_cnt[i] = len(st.alignments)
-                        for a in st.alignments:
-                            sc_l.append(a.score1)
-                            ix_l.append(a.index_num)
-                st_off = np.zeros(n + 1, np.int64)
-                np.cumsum(st_cnt, out=st_off[1:])
-                scs = np.asarray(sc_l or [0], np.int32)
-                ixs = np.asarray(ix_l or [0], np.int32)
+                with timed("state_walk"):   # the states earlier units left
+                    state5 = np.zeros((n, 5), np.int32)
+                    hit_seeds = np.zeros(n, np.int32)
+                    is_done = np.zeros(n, np.uint8)
+                    st_cnt = np.zeros(n, np.int64)
+                    sc_l: List[int] = []
+                    ix_l: List[int] = []
+                    for i, st in enumerate(states):
+                        state5[i, 0] = st.best
+                        state5[i, 1] = st.max_sw_count
+                        state5[i, 2] = st.is_hit
+                        state5[i, 3] = st.min_index
+                        state5[i, 4] = st.max_index
+                        hit_seeds[i] = st.hit_seeds
+                        is_done[i] = st.is_done
+                        if st.alignments:
+                            st_cnt[i] = len(st.alignments)
+                            for a in st.alignments:
+                                sc_l.append(a.score1)
+                                ix_l.append(a.index_num)
+                    st_off = np.zeros(n + 1, np.int64)
+                    np.cumsum(st_cnt, out=st_off[1:])
+                    scs = np.asarray(sc_l or [0], np.int32)
+                    ixs = np.asarray(ix_l or [0], np.int32)
+        if timers_enabled():    # the reads this unit searches
+            tally("db_reads_searched", count=int(
+                ((is_done == 0)
+                 & (np.diff(self.reads_off) >= ctx.lnwin)).sum()))
         self._hit_seeds_in = hit_seeds
         self._is_done_in = is_done
         self._fresh = states_fresh

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import mmap
 import os
 from typing import Any, Dict, List, Optional
 
@@ -114,6 +115,20 @@ def load_index(idx_dir: str, key: str) -> Optional[BuiltIndex]:
         part.seed_win_len = meta["seed_win_len"]
         parts.append(part)
     return BuiltIndex(stats=stats, parts=parts)
+
+
+def release_pages(part: IndexPart) -> None:
+    """Drop a mapped part's pages from the process's resident set once
+    its pass is done.  The file's pages stay in the page cache and a
+    later read faults them back in, so nothing changes but the memory
+    held: a job over several databases holds the pages of the part it
+    searches, as sortmerna holds one index part at a time, not those of
+    every part searched before.  Arrays not mapped from disk are left
+    as they are."""
+    for name in _PART_FIELDS:
+        m = getattr(getattr(part, name), "_mmap", None)
+        if m is not None:
+            m.madvise(mmap.MADV_DONTNEED)
 
 
 def from_numpy_parts(parts: List[Dict[str, Any]], stats) -> BuiltIndex:

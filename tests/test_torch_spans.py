@@ -50,7 +50,8 @@ def reader(metric):
 
 NEW_METRICS = ("part_driver.host_s_per_mnt", "sw.wait_s_per_mnt",
                "sw.useful_share", "state_save.s_per_mnt",
-               "sw.rounds_per_start")
+               "sw.rounds_per_start", "state_walk.s_per_mnt",
+               "align_db.max_s_per_mnt", "multidb.passes_per_read")
 HOST_STAGES = ("trav_pump", "fsm_jobs", "fsm_post", "fsm_apply",
                "batch_enc", "state_import", "engine_init")
 
@@ -158,7 +159,8 @@ def test_timers_agree_with_the_trace(traced):
         tot[name] += (b - a) / 1e6
         cnt[name] += 1
     spans_s = {k: v for k, v in timers.items()       # counts, not spans
-               if not k.startswith(("sw_jobs_", "sw_fsm_"))}
+               if not k.startswith(("sw_jobs_", "sw_fsm_",
+                                    "db_reads_"))}
     for name, (s, n) in spans_s.items():
         assert cnt[name] == n, name
         # a span's two clocks are read microseconds apart at each end; a
@@ -188,7 +190,7 @@ def test_readers_of_the_spans(traced):
 
 def test_readers_find_nothing_in_an_empty_run():
     obs = dict(jobs=[], phase_s={}, timers={}, device={}, mnt=1.0,
-               sw_launches=0, sw_bound_s=0.0)
+               reads=0, sw_launches=0, sw_bound_s=0.0)
     for m in NEW_METRICS:
         assert reader(m)(obs) is None, m
 
