@@ -496,7 +496,9 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
     waves compute on the device, the others run their host stages
     (probe, FSM start, result application), and the grouped scheduler
     concatenates several slices' waves -- across both strands -- into
-    each device call.  Results are byte-identical to the single-driver
+    each device call.  By default two halves of the slices take turns,
+    each half's pumps running at once on the native pool of
+    ``-threads`` workers.  Results are byte-identical to the single-driver
     sweep: reads never interact within a part.
     """
     from .part_driver import NativePartDriver
@@ -504,8 +506,8 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
     # Split count trades finer host/device interleave (each sub-range's
     # FIRST wave is the big one; smaller slices expose less device wait
     # behind too little host work) against per-driver overhead.  Device
-    # dispatches do not scale with the split -- the grouped interleave
-    # below concatenates SMR_WAVE_GROUP slices' waves into one submit.
+    # dispatches do not scale with the split -- the grouped schedulers
+    # below concatenate several slices' waves into one submit.
     k_env = os.environ.get("SMR_OVERLAP_SPLIT")
     if k_env is not None:
         k = int(k_env)
@@ -521,7 +523,7 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
     k = len(spans)
     nworkers = int(os.environ.get("SMR_OVERLAP_THREADS", "1"))
     # Thread-parallel schedulers (SMR_OVERLAP_THREADS, SMR_PUMP_WORKERS)
-    # stay for experiments; the default is the single-thread interleave.
+    # stay for experiments; the default pumps slices on the native pool.
     n_pump = int(os.environ.get("SMR_PUMP_WORKERS", "0")) \
         if nworkers <= 1 else 0
     # with concurrent pump workers each pump runs single-threaded
@@ -623,17 +625,21 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
                         if pending:
                             _wait(pending, return_when=FIRST_COMPLETED)
         else:
-            # Grouped interleave (default): same per-slice pump/post
-            # order as a plain interleave, but up to SMR_WAVE_GROUP
-            # slices' waves concatenate into ONE device submit, so the
-            # dispatch count does not grow with the split.
-            # Coord offsets are absolute into buffers shared by every
-            # slice of a strand (q_data is f04/r04, refs_data is the
-            # part concat), so grouping is a pure np.concatenate of the
-            # small coord arrays; results scatter back by per-slice job
-            # counts.  Byte-identical: slices never interact and each
-            # slice's in-order pass sequence is preserved.
+            # Grouped schedulers: several slices' waves concatenate into
+            # ONE device submit, so the dispatch count does not grow with
+            # the split.  Coord offsets are absolute into buffers shared
+            # by every slice of a strand (q_data is f04/r04, refs_data is
+            # the part concat), so grouping is a pure np.concatenate of
+            # the small coord arrays; results scatter back by per-slice
+            # job counts.  Byte-identical: slices never interact and
+            # each slice's in-order pass sequence is preserved.  The
+            # default pumps half the slices at once on the native pool
+            # (run_pooled); setting any of these knobs selects the
+            # single-thread grouped interleave or its threaded variants.
             import numpy as _np
+            pooled = not any(v in os.environ for v in (
+                "SMR_WAVE_GROUP", "SMR_FLUSH_DEPTH", "SMR_PUMP_HELPER",
+                "SMR_GROUP_WORKERS"))
             grp = max(1, int(os.environ.get("SMR_WAVE_GROUP", "4")))
             # force partial groups out whenever fewer than `depth`
             # waves are in flight, so the device is never idle waiting
@@ -670,27 +676,71 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
                 else:
                     finish_slice(i, lock)
 
-            def flush_into(pend, flight, force):
+            def submit(pend, mem):
+                # the waves of slices `mem` (one strand buffer) in one
+                # device call: (handle, [(slice, n_jobs), ...])
+                jbs = [pend.pop(i) for i in mem]
+                if len(jbs) == 1:
+                    h = backend.batch_coords_submit(*jbs[0])
+                else:
+                    cat = [_np.concatenate([jb[c] for jb in jbs])
+                           for c in (1, 2, 4, 5, 6)]
+                    h = backend.batch_coords_submit(
+                        jbs[0][0], cat[0], cat[1], jbs[0][3],
+                        cat[2], cat[3], cat[4])
+                return h, [(i, len(jb[1])) for i, jb in zip(mem, jbs)]
+
+            def by_buffer(pend):
                 by_q: dict = {}
                 for i in sorted(pend):
                     by_q.setdefault(id(pend[i][0]), []).append(i)
-                for ids in by_q.values():
+                return by_q.values()
+
+            def flush_into(pend, flight, force):
+                for ids in by_buffer(pend):
                     j0 = 0
                     while len(ids) - j0 >= grp or (force and j0 < len(ids)):
                         mem = ids[j0:j0 + grp]
                         j0 += len(mem)
-                        jbs = [pend.pop(i) for i in mem]
-                        if len(jbs) == 1:
-                            h = backend.batch_coords_submit(*jbs[0])
+                        flight.append(submit(pend, mem))
+
+            def post(h, mem, then=lambda i: None):
+                # fetch one submit's results and post each slice's part
+                # to its driver, calling then(slice) after each
+                res = backend.batch_coords_fetch(h)
+                o = 0
+                for i, ni in mem:
+                    drvs[i].post(tuple(a[o:o + ni] for a in res))
+                    o += ni
+                    then(i)
+
+            def run_pooled():
+                # Two halves of the slices take turns: one half's pumps
+                # run at once on the native pool of -threads workers
+                # while the other half's waves are on the card.  A
+                # half's waves go in one submit a strand buffer; a slice
+                # whose pump finds no more work exports at once, in
+                # slice order, on this thread.
+                def pump(ids):
+                    pend = {}
+                    for i, jb in zip(ids, NativePartDriver.pump_many(
+                            [drvs[i] for i in ids])):
+                        if jb is None:
+                            finish_slice(i)
                         else:
-                            cat = [_np.concatenate([jb[c] for jb in jbs])
-                                   for c in (1, 2, 4, 5, 6)]
-                            h = backend.batch_coords_submit(
-                                jbs[0][0], cat[0], cat[1], jbs[0][3],
-                                cat[2], cat[3], cat[4])
-                        flight.append(
-                            (h, [(i, len(jb[1]))
-                                 for i, jb in zip(mem, jbs)]))
+                            pend[i] = jb
+                    return [submit(pend, mem) for mem in by_buffer(pend)]
+
+                flight = [w for w in (pump(list(range(h, k, 2)))
+                                      for h in range(min(2, k))) if w]
+                while flight:
+                    waves = flight.pop(0)
+                    for h, mem in waves:
+                        post(h, mem)
+                    waves = pump(sorted(i for _, mem in waves
+                                        for i, _ in mem))
+                    if waves:
+                        flight.append(waves)
 
             def run_slices(slice_ids, lock=None):
                 # one grouped pump/submit/fetch/post loop over a set of
@@ -708,16 +758,13 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
                     if not flight:
                         flush_into(pend, flight, True)
                         continue
-                    h, mem = flight.pop(0)
-                    res = backend.batch_coords_fetch(h)
-                    o = 0
-                    for i, ni in mem:
-                        drvs[i].post(tuple(a[o:o + ni] for a in res))
-                        o += ni
-                        pump_into(i, pend, lock)
+                    post(*flight.pop(0),
+                         then=lambda i: pump_into(i, pend, lock))
                     flush_into(pend, flight, depth > len(flight))
 
-            if int(os.environ.get("SMR_PUMP_HELPER", "0")):
+            if pooled:
+                run_pooled()
+            elif int(os.environ.get("SMR_PUMP_HELPER", "0")):
                 # Async-pump variant: ONE helper thread runs the native
                 # pumps (trav_pump is a ctypes call -- the GIL is
                 # released for the whole C++ stage), so the pump keeps
@@ -748,14 +795,9 @@ def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
                         flush_into(pend, flight,
                                    not flight and not futs)
                         if flight:
-                            h, mem = flight.pop(0)
-                            res = backend.batch_coords_fetch(h)
-                            o = 0
-                            for i, ni in mem:
-                                drvs[i].post(
-                                    tuple(a[o:o + ni] for a in res))
-                                o += ni
+                            def resubmit(i):
                                 futs[i] = ex.submit(drvs[i].pump_jobs)
+                            post(*flight.pop(0), then=resubmit)
                         elif futs and not moved:
                             _wait(list(futs.values()),
                                   return_when=FIRST_COMPLETED)

@@ -16,6 +16,7 @@ part end.
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -171,13 +172,13 @@ class NativePartDriver:
             state5, hit_seeds, is_done, st_off, scs, ixs, mat, skips]
         self._keep = bufs_np            # lifetimes pinned to the driver
         ptrs = np.asarray([a.ctypes.data for a in bufs_np], np.uint64)
+        self.threads = max(1, threads_override if threads_override
+                           is not None else getattr(opts, "threads", 1))
         ip = np.asarray([
             n, len(ctx.ref_seqs),
             len(pbufs[0]), len(pbufs[2]), len(pbufs[5]), len(pbufs[9]),
             len(pbufs[12]),
-            opts.minoccur, int(opts.is_full_search),
-            max(1, threads_override if threads_override is not None
-                else getattr(opts, "threads", 1)),
+            opts.minoccur, int(opts.is_full_search), self.threads,
             opts.num_alignments, int(opts.is_best), opts.num_seeds,
             opts.min_lis, opts.edges, int(opts.is_as_percent),
             opts.match, int(ctx.minimal_score), ctx.lnwin,
@@ -194,10 +195,17 @@ class NativePartDriver:
         """Advance the native driver to the next device wave.  Returns
         the batch_coords argument tuple, or None once the part is
         complete (results must then be collected with finish())."""
-        lib = self.lib
         from ..util import timed
         with timed("trav_pump"):
-            n = lib.trav_pump(self.h)
+            n = self.lib.trav_pump(self.h)
+        return self.jobs(n)
+
+    def jobs(self, n: int):
+        """The batch_coords argument tuple of the wave that a pump
+        returning ``n`` left pending, or None once the part is
+        complete."""
+        lib = self.lib
+        from ..util import timed
         if n < 0:
             raise ValueError(
                 "native driver: probe_windows reported an unsupported "
@@ -255,6 +263,32 @@ class NativePartDriver:
                 res = sw_backend.batch_coords(*jb)
             self.post(res)
         self.finish(states, readstats)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def pump_many(drvs: List["NativePartDriver"]) -> list:
+        """Pump several slice drivers of one part at once on the native
+        pool of ``-threads`` workers (``trav_pump_many``): the pump_jobs
+        of each, in order.  The ``trav_pump`` span covers the whole call;
+        with spans on, ``pump_pool_busy`` adds the seconds the pool's
+        threads spent pumping and ``pump_pool_cap`` the call's wall
+        times the pool's width."""
+        from ..util import tally, timed, timers_enabled
+        k = len(drvs)
+        hs = np.asarray([d.h for d in drvs], np.uint64)
+        out = np.zeros(k, np.int32)
+        lib = drvs[0].lib
+        with timed("trav_pump"):
+            if timers_enabled():
+                t0 = time.perf_counter()
+                busy = lib.trav_pump_many(hs.ctypes.data, k,
+                                          out.ctypes.data)
+                tally("pump_pool_busy", busy * 1e-9)
+                tally("pump_pool_cap",
+                      (time.perf_counter() - t0) * drvs[0].threads)
+            else:
+                lib.trav_pump_many(hs.ctypes.data, k, out.ctypes.data)
+        return [d.jobs(n) for d, n in zip(drvs, out.tolist())]
 
     # ------------------------------------------------------------------
     def _export(self, states: List[ReadState],

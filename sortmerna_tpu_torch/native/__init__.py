@@ -54,8 +54,8 @@ def _load() -> Optional[ctypes.CDLL]:
     srcs = [_SRC_DIR / "traceback.cpp", _SRC_DIR / "engine.cpp",
             _SRC_DIR / "probe.cpp", _SRC_DIR / "gumbel.cpp",
             _SRC_DIR / "driver.cpp", _SRC_DIR / "feed_scan.cpp",
-            _SRC_DIR / "refload.cpp"]
-    hdrs = [_SRC_DIR / "engine_core.hpp"]
+            _SRC_DIR / "refload.cpp", _SRC_DIR / "pool.cpp"]
+    hdrs = [_SRC_DIR / "engine_core.hpp", _SRC_DIR / "pool.hpp"]
     if (not so.exists()
             or any(so.stat().st_mtime < s.stat().st_mtime
                    for s in srcs + hdrs)):
@@ -149,6 +149,12 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.trav_strand.argtypes = [ctypes.c_void_p]
     lib.trav_pump.restype = ctypes.c_int32
     lib.trav_pump.argtypes = [ctypes.c_void_p]
+    lib.trav_pump_many.restype = ctypes.c_int64
+    lib.trav_pump_many.argtypes = [ctypes.c_void_p, ctypes.c_int32,
+                                   ctypes.c_void_p]
+    lib.pool_counts.argtypes = [ctypes.c_void_p]
+    lib.pool_run.argtypes = [ctypes.c_int32, ctypes.c_int64,
+                             ctypes.c_void_p]
     lib.trav_export.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.cand_set_reads.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.cand_set_strand.argtypes = [ctypes.c_void_p, ctypes.c_int32]

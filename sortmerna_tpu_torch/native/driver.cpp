@@ -20,12 +20,14 @@
 // _traverse_strand_vec (itself a port of paralleltraversal.cpp:259-297).
 
 #include <algorithm>
+#include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
-#include <thread>
 #include <vector>
 
 #include "engine_core.hpp"
+#include "pool.hpp"
 
 namespace {
 
@@ -435,6 +437,27 @@ int32_t trav_pump(void* h) {
             return 0;
         }
     }
+}
+
+// Pump k slice drivers of one part at once on the native pool (pool.hpp):
+// out_n[i] = trav_pump(handles[i]).  Workers take slices from a shared
+// counter, so a slice with more hits leaves no worker idle, and each
+// slice's pump runs single-threaded inside its task.  A lone slice runs
+// on the caller with the pool left to its probes and FSM starts.
+// Returns the nanoseconds the pool's threads spent on these pumps.
+int64_t trav_pump_many(void** handles, int32_t k, int32_t* out_n) {
+    std::atomic<int64_t> busy{0};
+    if (k <= 0) return 0;
+    auto pump = [&](int64_t i) {
+        auto t0 = std::chrono::steady_clock::now();
+        out_n[i] = trav_pump(handles[i]);
+        busy += std::chrono::duration_cast<std::chrono::nanoseconds>(
+            std::chrono::steady_clock::now() - t0).count();
+    };
+    if (k == 1) smr::pool_set_sink(&busy);    // its probes' workers
+    smr::pool_for((int)((Driver*)handles[0])->ip[P_THREADS], k, pump);
+    smr::pool_set_sink(nullptr);
+    return busy.load();
 }
 
 // Final per-read export: out[n,8] = best, max_sw_count, is_hit,

@@ -150,7 +150,7 @@ struct Engine {
     // waiting by their start, and (FSM, wave) pairs that offered jobs
     int64_t n_scored = 0, n_consumed = 0;
     int64_t n_starts = 0, n_rounds = 0;
-    int nthreads = 1;   // host threads for batched FSM start (--threads)
+    int nthreads = 1;   // pool width for batched FSM start (--threads)
 };
 
 // FSM init + speculation + first advance for one read (engine.cpp).

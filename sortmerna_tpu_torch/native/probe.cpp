@@ -15,8 +15,9 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <thread>
 #include <vector>
+
+#include "pool.hpp"
 
 namespace {
 
@@ -340,9 +341,10 @@ static ProbeFn probe_fn_for(int pw) {
 extern "C" {
 
 // Returns number of (win, id) pairs written, or -(needed) if cap is too
-// small (caller retries with a bigger buffer).  Windows are partitioned
-// over `threads` host threads; chunk concatenation preserves the
-// sequential per-window output order exactly.  pw = seed_win_len / 2
+// small (caller retries with a bigger buffer).  Each 64K-window segment's
+// unique keys are cut into `threads` chunks run on the native pool
+// (pool.hpp; inline inside a pool task); chunk concatenation preserves
+// the sequential per-window output order exactly.  pw = seed_win_len / 2
 // (4..13); returns INT64_MIN on an unsupported pw.
 int64_t probe_windows(
     const uint64_t* fx_k, const uint32_t* fx_v, int64_t fx_n,
@@ -368,6 +370,7 @@ int64_t probe_windows(
              k19_k, k19_v, k19_n, r_ids, counts9,
              f19_off, f19_ti, r19_off, r19_ti};
     if (nw <= 0) return 0;
+    const int width = threads < 1 ? 1 : threads;
 
     // --- per-call key dedup.  Amplicon batches repeat (w1, w2) keys
     // heavily (set2: ~9-11% unique per slice-sized call, 4% across
@@ -430,25 +433,16 @@ int64_t probe_windows(
         }
         const int64_t nu = (int64_t)uw1.size();
 
-        int nt = threads < 1 ? 1 : threads;
+        int nt = width;
         if ((int64_t)nt > nu) nt = nu > 0 ? (int)nu : 1;
         std::vector<std::vector<std::pair<int64_t, int64_t>>> outs(nt);
-        if (nt <= 1) {
-            fn(t, uw1.data(), uw2.data(), 0, nu, minoccur, full_search,
-               outs[0]);
-        } else {
-            std::vector<std::thread> ths;
-            for (int i = 0; i < nt; ++i) {
-                int64_t lo = nu * i / nt, hi = nu * (i + 1) / nt;
-                ths.emplace_back(fn, std::cref(t), uw1.data(),
-                                 uw2.data(), lo, hi, minoccur,
-                                 full_search, std::ref(outs[i]));
-            }
-            for (auto& th : ths) th.join();
-        }
+        smr::pool_for(width, nt, [&](int64_t i) {
+            fn(t, uw1.data(), uw2.data(), nu * i / nt, nu * (i + 1) / nt,
+               minoccur, full_search, outs[i]);
+        });
 
         // flatten per-unique-key id lists (outs are unique-index
-        // ordered: threads partition a contiguous unique range)
+        // ordered: chunks partition a contiguous unique range)
         sr.uoff.assign(nu + 1, 0);
         int64_t n_pairs = 0;
         for (auto& o : outs) n_pairs += (int64_t)o.size();

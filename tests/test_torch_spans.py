@@ -51,7 +51,8 @@ def reader(metric):
 NEW_METRICS = ("part_driver.host_s_per_mnt", "sw.wait_s_per_mnt",
                "sw.useful_share", "state_save.s_per_mnt",
                "sw.rounds_per_start", "state_walk.s_per_mnt",
-               "align_db.max_s_per_mnt", "multidb.passes_per_read")
+               "align_db.max_s_per_mnt", "multidb.passes_per_read",
+               "pump.pool_occupancy")
 HOST_STAGES = ("trav_pump", "fsm_jobs", "fsm_post", "fsm_apply",
                "batch_enc", "state_import", "engine_init")
 
@@ -160,7 +161,7 @@ def test_timers_agree_with_the_trace(traced):
         cnt[name] += 1
     spans_s = {k: v for k, v in timers.items()       # counts, not spans
                if not k.startswith(("sw_jobs_", "sw_fsm_",
-                                    "db_reads_"))}
+                                    "db_reads_", "pump_pool_"))}
     for name, (s, n) in spans_s.items():
         assert cnt[name] == n, name
         # a span's two clocks are read microseconds apart at each end; a
