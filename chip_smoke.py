@@ -61,49 +61,38 @@ printed):
    ``MeshSwBackend`` (two ``sw_fused`` launches a block), then the normal
    post-processing and reports: byte-identical to phase 7's, counters
    equal;
-11. schedulers: the first 20,000 reads (above OVERLAP_MIN_READS, so the
-   overlap scheduler runs, at its default split of 24 on cuda) with the
-   defaults, then under each of the scheduler's seven opt-in settings
-   (``SCHEDULER_SETTINGS``: wave groups of 3 and 1, the pump helper,
-   2 group workers, flush depth 1, 2 overlap threads, 2 pump workers),
-   several of which launch kernels from several threads: each run
-   through the overlap scheduler, with ``sw_fused`` launches, and
-   byte-identical to the defaults' reports; each setting's wall, reads/s
-   and kernels-busy share on a line of its own;
-12. sharded-device-probe: phase 10 with ``-device_probe``: the two
+11. sharded-device-probe: phase 10 with ``-device_probe``: the two
    shards' threads share the part's device searcher and its output
    buffers; ``seed_probe``, ``seed_compact`` and ``sw_fused`` launches
    > 0, reports byte-identical to phase 7's, counters equal;
-13. multihost-align: the full run through two processes of the CLI
+12. multihost-align: the full run through two processes of the CLI
    joined by gloo on 127.0.0.1 (``SMR_NPROCS=2``), both on cuda:0, each
    with its own workdir and a shared output prefix: process 0's merged
    reports byte-identical to phase 7's; each process's wall and
    ``sw_fused`` launches;
-14. tasks-and-resume: 2,000 reads, ``--task`` 0, 1, 2 and 3, 2 against
+13. tasks-and-resume: 2,000 reads, ``--task`` 0, 1, 2 and 3, 2 against
    ``--task 4``, and a run hard-exited after its 2nd journal unit then
    resumed: the same reports;
-15. long-reads: reads of 120, 500 and 2,000 nt and one of 30,000 on cpu
+14. long-reads: reads of 120, 500 and 2,000 nt and one of 30,000 on cpu
    and on cuda (byte-identical reports, each device's wall; tiles over
    1,024 rows, so ``sw_fused``'s long-tile route, inside the align), then
    that route timed beside its bound for ``sw_fused`` and ``sw_fused2``
    at ``LONG_TILES`` (1024 x 2048 x 2048, 256 x 4096 x 4096, 64 x 8192 x
    8192, 64 x 32768 x 32768 and 1 x 32768 x 32768);
-16. host-path: the python traverse (native library switched off with
+15. host-path: the python traverse (native library switched off with
    SMR_NO_NATIVE=1, in a child process) on 200 reads, whose SW jobs go
    through ``TorchSwBackend.batch`` -> the ``sw_scan`` kernel.
 
 Before the last line it prints the card line and one JSON line with the
 six kernels (launches on their path, ms, plain ms, bound, library ms, and
-how each was timed; their launches on phases 10-15 under
+how each was timed; their launches on phases 10-14 under
 ``launches_on_other_paths``, and under ``long_tiles`` both fused
 kernels' route, ms and bound at each long-read tile); the last line
 is ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Details go to
 chiprun_out/chip_smoke/.  It takes about seven minutes.
 
-Phases 10-12 run the port's threaded paths on the card: read shards
-sharing one SW backend and one device searcher, and the overlap
-scheduler's worker, helper and pump threads launching kernels side by
-side.
+Phases 10 and 11 run the port's threaded paths on the card: read shards
+sharing one SW backend and one device searcher.
 
 All four SW entries (sw_scan / sw_fused of csrc/sw_scan.cu, sw_scan2 /
 sw_fused2 of csrc/sw_scan2.cu) run the one wavefront core of
@@ -1000,70 +989,6 @@ def phase_sharded_align(top, db, reads, n_reads, wd_full, full,
                 reads_per_s=n_reads / secs, launches=got, counters=mine)
 
 
-# the overlap scheduler's opt-in settings (engine/align.py
-# _run_part_overlapped), as tests/test_torch_schedulers.py holds them
-SCHEDULER_SETTINGS = {
-    "grp3": {"SMR_OVERLAP_SPLIT": "8", "SMR_WAVE_GROUP": "3"},
-    "grp1": {"SMR_OVERLAP_SPLIT": "8", "SMR_WAVE_GROUP": "1"},
-    "helper": {"SMR_OVERLAP_SPLIT": "6", "SMR_PUMP_HELPER": "1"},
-    "workers2": {"SMR_OVERLAP_SPLIT": "8", "SMR_GROUP_WORKERS": "2"},
-    "depth1": {"SMR_OVERLAP_SPLIT": "8", "SMR_FLUSH_DEPTH": "1"},
-    "threads2": {"SMR_OVERLAP_SPLIT": "8", "SMR_OVERLAP_THREADS": "2"},
-    "pump2": {"SMR_OVERLAP_SPLIT": "8", "SMR_PUMP_WORKERS": "2"},
-}
-SCHEDULER_KNOBS = ("SMR_OVERLAP",) + tuple(sorted(
-    {k for env in SCHEDULER_SETTINGS.values() for k in env}))
-SCHEDULER_READS = 20000
-
-
-def phase_schedulers(top, db, reads, card):
-    """The first SCHEDULER_READS reads with the scheduler's defaults, then
-    under each of SCHEDULER_SETTINGS: every run through the overlap
-    scheduler (counted at _run_part_overlapped), sw_fused launched, and
-    the reports byte-identical to the defaults'."""
-    from sortmerna_tpu_torch.engine import align
-    if SCHEDULER_READS < align.OVERLAP_MIN_READS:
-        raise AssertionError("the scheduler phase would not overlap")
-    sub = os.path.join(top, "reads20k.fasta")
-    head_reads(reads, sub, SCHEDULER_READS)
-    overlapped = []
-    orig = align._run_part_overlapped
-
-    def spy(*a, **kw):
-        overlapped.append(1)
-        return orig(*a, **kw)
-
-    align._run_part_overlapped = spy
-    res, wd_base = {}, None
-    try:
-        for name, env in [("default", {})] + list(SCHEDULER_SETTINGS.items()):
-            before = len(overlapped)
-            wd, r = phase_align(top, db, sub, SCHEDULER_READS,
-                                f"schedulers-{name}", env=env,
-                                same_as=wd_base)
-            if len(overlapped) == before:
-                raise AssertionError(f"schedulers-{name}: the overlap "
-                                     "scheduler did not run")
-            wd_base = wd_base or wd
-            res[name] = dict(env=env, seconds=r["seconds"],
-                             reads_per_s=r["reads_per_s"],
-                             kernel_seconds=r["kernel_seconds"],
-                             busy_share=r["kernel_seconds"] / r["seconds"],
-                             run_align_s=r["phases"]["run_align"],
-                             launches=r["launches"])
-    finally:
-        align._run_part_overlapped = orig
-    for name, r in res.items():
-        log(f"schedulers {name} {r['env'] or '(defaults)'}: wall "
-            f"{r['seconds']:.3f}s, {r['reads_per_s']:.1f} reads/s, "
-            f"run_align {r['run_align_s']:.3f}s, kernels busy "
-            f"{r['busy_share']:.2%}, sw_fused launches "
-            f"{r['launches']['sw_fused']}; {card}")
-    log(f"schedulers: {len(SCHEDULER_SETTINGS)} settings byte-identical to "
-        f"the defaults on {SCHEDULER_READS} reads")
-    return res
-
-
 _MULTIHOST_CHILD = r"""
 import json, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -1346,7 +1271,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
     os.environ["SMR_TIMERS"] = "1"    # the port's stage timers (util.timed)
-    for k in ("SMR_PALLAS", "SMR_DEVICE_PROBE") + SCHEDULER_KNOBS:
+    for k in ("SMR_PALLAS", "SMR_DEVICE_PROBE"):
         os.environ.pop(k, None)       # the default path unless a phase asks
 
     card = card_line()
@@ -1390,7 +1315,6 @@ def main() -> int:
             path_launches[k] = probe["launches"][k]
         sharded = phase_sharded_align(top, db, reads, N_READS, wd_full,
                                       results)
-        schedulers = phase_schedulers(top, db, reads, card)
         sharded_probe = phase_sharded_align(
             top, db, reads, N_READS, wd_full, results,
             tag="sharded-device-probe", extra=["-device_probe"],
@@ -1405,7 +1329,7 @@ def main() -> int:
         json.dump(dict(card=card, ptxas=ptxas, timing=timing,
                        align=results,
                        pallas2_align=v2, device_probe_align=probe,
-                       sharded_align=sharded, schedulers=schedulers,
+                       sharded_align=sharded,
                        sharded_device_probe=sharded_probe,
                        multihost_align=multihost,
                        tasks_resume=tasks, long_reads=long_reads,
@@ -1414,8 +1338,6 @@ def main() -> int:
     # both fused kernels' long-tile route timed at the long-read tiles
     other_paths = {"sw_fused": {
         "sharded-align": sharded["launches"]["sw_fused"],
-        "schedulers": {k: r["launches"]["sw_fused"]
-                       for k, r in schedulers.items()},
         "sharded-device-probe": sharded_probe["launches"]["sw_fused"],
         "multihost-align": [r["launches"]["sw_fused"]
                             for r in multihost["processes"]],

@@ -16,7 +16,6 @@ is_done conditions) follow paralleltraversal.cpp:95-297 exactly.
 
 from __future__ import annotations
 
-import os
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -26,32 +25,9 @@ import numpy as np
 from ..constants import NT_TABLE, PARTIAL_WIN, SEED_WIN_LEN, scoring_matrix_5x5
 from ..index.builder import BuiltIndex, IndexPart
 from ..ops.seed_probe import SeedSearcher
-from ..ops import sw_ref
 from .candidates import (Opts, PartContext, Readstats, SwJob,
                          compute_lis_alignment)
 from .read import ReadSeq, ReadState
-
-
-# ---------------------------------------------------------------------------
-# SW backends
-
-
-class NumpySwBackend:
-    """Host fallback backend: per-job align_full (ops/sw_ref.py)."""
-
-    def __init__(self, mat: np.ndarray, gap_open: int, gap_ext: int):
-        self.mat = mat.astype(np.int64)
-        self.gap_open = gap_open
-        self.gap_ext = gap_ext
-
-    def batch(self, jobs: Sequence[SwJob]) -> List[dict]:
-        out = []
-        for j in jobs:
-            out.append(sw_ref.align_full(
-                np.asarray(j.query, dtype=np.int64),
-                np.asarray(j.ref, dtype=np.int64),
-                self.mat, self.gap_open, self.gap_ext, j.minimal_score))
-        return out
 
 
 # ---------------------------------------------------------------------------
@@ -478,360 +454,110 @@ def _traverse_strand_vec(
 # host stages and device waves pipeline against each other
 OVERLAP_MIN_READS = 8192
 
-
-def _overlap_enabled() -> bool:
-    """Half-batch pipelining: one half's device waves hide behind the
-    other half's host stages.  Default ON for any host with >=2 cores;
-    SMR_OVERLAP=1/0 overrides."""
-    v = os.environ.get("SMR_OVERLAP")
-    if v is not None:
-        return v not in ("0", "", "false")
-    return (os.cpu_count() or 1) >= 2
+# read-range slices a part's batch is cut into, by the SW backend's
+# device type: the card has device time to hide behind the host stages
+# and gains from fine slicing; on the host extra waves are pure overhead
+OVERLAP_SLICES = {"cuda": 24, "cpu": 2}
 
 
 def _run_part_overlapped(part, ctx, opts, batch, states, skiplengths,
                          backend, readstats, states_fresh) -> None:
     """Pipelined part sweep: the batch splits into read-range slices
-    (independent reads, shared concat buffers); while some slices' SW
-    waves compute on the device, the others run their host stages
-    (probe, FSM start, result application), and the grouped scheduler
-    concatenates several slices' waves -- across both strands -- into
-    each device call.  By default two halves of the slices take turns,
-    each half's pumps running at once on the native pool of
-    ``-threads`` workers.  Results are byte-identical to the single-driver
-    sweep: reads never interact within a part.
+    (independent reads, shared concat buffers), one native driver each.
+    Two halves of the slices take turns: one half's pumps (probe, FSM
+    start, result application) run at once on the native pool of
+    ``-threads`` workers while the other half's SW waves are on the
+    device.  A half's waves concatenate, across both strands, into one
+    device call a strand buffer.  Results are byte-identical to the
+    single-driver sweep: reads never interact within a part, and each
+    slice keeps its own in-order pass sequence.
     """
     from .part_driver import NativePartDriver
 
-    # Split count trades finer host/device interleave (each sub-range's
-    # FIRST wave is the big one; smaller slices expose less device wait
-    # behind too little host work) against per-driver overhead.  Device
-    # dispatches do not scale with the split -- the grouped schedulers
-    # below concatenate several slices' waves into one submit.
-    k_env = os.environ.get("SMR_OVERLAP_SPLIT")
-    if k_env is not None:
-        k = int(k_env)
-    else:
-        # a GPU backend benefits from fine slicing (device time to hide
-        # behind host stages); on the CPU extra waves are pure overhead
-        dev = getattr(backend, "device", None)
-        k = 24 if getattr(dev, "type", "cpu") == "cuda" else 2
-    k = max(2, min(k, 32))
+    dev = getattr(backend, "device", None)
+    k = OVERLAP_SLICES["cuda" if getattr(dev, "type", "cpu") == "cuda"
+                       else "cpu"]
     cuts = [batch.n * i // k for i in range(k + 1)]
     spans = [(cuts[i], cuts[i + 1]) for i in range(k)
              if cuts[i] < cuts[i + 1]]
     k = len(spans)
-    nworkers = int(os.environ.get("SMR_OVERLAP_THREADS", "1"))
-    # Thread-parallel schedulers (SMR_OVERLAP_THREADS, SMR_PUMP_WORKERS)
-    # stay for experiments; the default pumps slices on the native pool.
-    n_pump = int(os.environ.get("SMR_PUMP_WORKERS", "0")) \
-        if nworkers <= 1 else 0
-    # with concurrent pump workers each pump runs single-threaded
-    # internally (worker-level parallelism replaces stage-level)
-    tov = 1 if n_pump > 1 else None
-    finished = [False] * k      # slices exported early by the grouped
-                                # interleave (skipped in the final sweep)
+    finished = [False] * k      # slices exported as their pumps ran dry
     drvs = [NativePartDriver(part, ctx, opts, batch, states[lo:hi],
                              skiplengths, states_fresh=states_fresh,
-                             lo=lo, hi=hi, threads_override=tov)
+                             lo=lo, hi=hi)
             for lo, hi in spans]
-    # The explicit submit/fetch split keeps several slices' waves in
-    # flight, where a thread blocking on each batch_coords would
-    # serialize on every fetch.
-    try:
-        if nworkers > 1:
-            # Worker-pool scheduler: each worker drives whole slices
-            # (pump -> submit -> blocking fetch -> post); a blocking
-            # fetch releases the GIL (C transfer wait), so the other
-            # worker's host stages run on the second core.  The round-4
-            # thread-per-half failure mode (two blocking fetches
-            # starving submission) is diluted by k slices per worker.
-            import queue as _queue
-            import threading as _threading
-            work: "_queue.SimpleQueue[int]" = _queue.SimpleQueue()
-            for i in range(k):
-                work.put(i)
-            errs: list = []
 
-            def drive():
-                while True:
-                    try:
-                        i = work.get_nowait()
-                    except _queue.Empty:
-                        return
-                    try:
-                        while True:
-                            jb = drvs[i].pump_jobs()
-                            if jb is None:
-                                break
-                            h = backend.batch_coords_submit(*jb)
-                            drvs[i].post(backend.batch_coords_fetch(h))
-                    except BaseException as e:  # noqa: BLE001
-                        errs.append(e)
-                        return
+    def finish_slice(i):
+        # slice complete: export its state/actions NOW so this host work
+        # fills the other half's device time instead of running serially
+        # after the drain.  On the LAST (index, part) slots can no longer
+        # be replaced, so the slice's surviving tracebacks materialize
+        # here too.
+        lo, hi = spans[i]
+        drvs[i].finish(states[lo:hi], readstats)
+        finished[i] = True
+        if ctx.is_last_index and ctx.is_last_part:
+            from ..util import timed
+            from .run import materialize_cigars_for
+            with timed("cigar_mat"):
+                materialize_cigars_for(states[lo:hi], opts)
 
-            ths = [_threading.Thread(target=drive)
-                   for _ in range(min(nworkers, k))]
-            for t in ths:
-                t.start()
-            for t in ths:
-                t.join()
-            if errs:
-                raise errs[0]
-        elif n_pump > 0:
-            # Pipelined scheduler: n_pump helper threads run the native
-            # pumps CONCURRENTLY (trav_pump releases the GIL; with >1
-            # workers each pump is internally single-threaded, so
-            # worker-level parallelism covers the pump's serial stages
-            # too), while the main thread does the GIL-bound stages
-            # (submit fill, device fetch, post).  Slices cycle
-            # pump -> submit -> fetch -> post independently, so pumps
-            # overlap other slices' device/GIL stages.  Results are
-            # byte-identical: slices never interact and each slice's
-            # stage order is preserved.
-            from concurrent.futures import ThreadPoolExecutor
-            hands = [None] * k
-            futs = [None] * k
-            live = k
-            with ThreadPoolExecutor(n_pump) as ex:
-                for i in range(k):
-                    futs[i] = ex.submit(drvs[i].pump_jobs)
-                while live:
-                    progressed = False
-                    for i in range(k):
-                        if futs[i] is not None and futs[i].done():
-                            jb = futs[i].result()
-                            futs[i] = None
-                            if jb is None:
-                                live -= 1
-                            else:
-                                hands[i] = \
-                                    backend.batch_coords_submit(*jb)
-                            progressed = True
-                        elif hands[i] is not None:
-                            res = backend.batch_coords_fetch(hands[i])
-                            hands[i] = None
-                            drvs[i].post(res)
-                            futs[i] = ex.submit(drvs[i].pump_jobs)
-                            progressed = True
-                    if not progressed:
-                        # every slice is pump-pending; wait for the
-                        # FIRST pump to finish (not an arbitrary one --
-                        # blocking on a queued-last future serializes
-                        # the whole pipeline behind it)
-                        from concurrent.futures import (FIRST_COMPLETED,
-                                                        wait as _wait)
-                        pending = [f for f in futs if f is not None]
-                        if pending:
-                            _wait(pending, return_when=FIRST_COMPLETED)
+    def submit(pend, mem):
+        # the waves of slices `mem` (one strand buffer) in one device
+        # call: (handle, [(slice, n_jobs), ...]).  Coord offsets are
+        # absolute into buffers shared by every slice of a strand (q_data
+        # is f04/r04, refs_data the part concat), so grouping is a pure
+        # concatenation of the small coord arrays.
+        jbs = [pend.pop(i) for i in mem]
+        if len(jbs) == 1:
+            h = backend.batch_coords_submit(*jbs[0])
         else:
-            # Grouped schedulers: several slices' waves concatenate into
-            # ONE device submit, so the dispatch count does not grow with
-            # the split.  Coord offsets are absolute into buffers shared
-            # by every slice of a strand (q_data is f04/r04, refs_data is
-            # the part concat), so grouping is a pure np.concatenate of
-            # the small coord arrays; results scatter back by per-slice
-            # job counts.  Byte-identical: slices never interact and
-            # each slice's in-order pass sequence is preserved.  The
-            # default pumps half the slices at once on the native pool
-            # (run_pooled); setting any of these knobs selects the
-            # single-thread grouped interleave or its threaded variants.
-            import numpy as _np
-            pooled = not any(v in os.environ for v in (
-                "SMR_WAVE_GROUP", "SMR_FLUSH_DEPTH", "SMR_PUMP_HELPER",
-                "SMR_GROUP_WORKERS"))
-            grp = max(1, int(os.environ.get("SMR_WAVE_GROUP", "4")))
-            # force partial groups out whenever fewer than `depth`
-            # waves are in flight, so the device is never idle waiting
-            # on a full group to assemble (2 keeps the device fed
-            # through part tails)
-            depth = int(os.environ.get("SMR_FLUSH_DEPTH", "2"))
+            cat = [np.concatenate([jb[c] for jb in jbs])
+                   for c in (1, 2, 4, 5, 6)]
+            h = backend.batch_coords_submit(
+                jbs[0][0], cat[0], cat[1], jbs[0][3],
+                cat[2], cat[3], cat[4])
+        return h, [(i, len(jb[1])) for i, jb in zip(mem, jbs)]
 
-            def finish_slice(i, lock=None):
-                # slice complete: export its state/actions NOW so this
-                # host work fills other groups' device time instead of
-                # running serially after the drain.  On the LAST
-                # (index, part) slots can no longer be replaced, so the
-                # slice's surviving tracebacks materialize here too
-                # (outside the lock -- slices are disjoint; only the
-                # shared readstats/finished updates need serializing).
-                lo_, hi_ = spans[i]
-                if lock is None:
-                    drvs[i].finish(states[lo_:hi_], readstats)
-                    finished[i] = True
-                else:
-                    with lock:
-                        drvs[i].finish(states[lo_:hi_], readstats)
-                        finished[i] = True
-                if ctx.is_last_index and ctx.is_last_part:
-                    from ..util import timed as _timed
-                    from .run import materialize_cigars_for
-                    with _timed("cigar_mat"):
-                        materialize_cigars_for(states[lo_:hi_], opts)
+    def by_buffer(pend):
+        # pending waves grouped by their query buffer, i.e. by strand
+        by_q: dict = {}
+        for i in sorted(pend):
+            by_q.setdefault(id(pend[i][0]), []).append(i)
+        return by_q.values()
 
-            def pump_into(i, pend, lock=None):
-                jb = drvs[i].pump_jobs()
-                if jb is not None:
-                    pend[i] = jb
-                else:
-                    finish_slice(i, lock)
+    def post(h, mem):
+        # fetch one submit's results and scatter them back to the
+        # slices' drivers by per-slice job counts
+        res = backend.batch_coords_fetch(h)
+        o = 0
+        for i, ni in mem:
+            drvs[i].post(tuple(a[o:o + ni] for a in res))
+            o += ni
 
-            def submit(pend, mem):
-                # the waves of slices `mem` (one strand buffer) in one
-                # device call: (handle, [(slice, n_jobs), ...])
-                jbs = [pend.pop(i) for i in mem]
-                if len(jbs) == 1:
-                    h = backend.batch_coords_submit(*jbs[0])
-                else:
-                    cat = [_np.concatenate([jb[c] for jb in jbs])
-                           for c in (1, 2, 4, 5, 6)]
-                    h = backend.batch_coords_submit(
-                        jbs[0][0], cat[0], cat[1], jbs[0][3],
-                        cat[2], cat[3], cat[4])
-                return h, [(i, len(jb[1])) for i, jb in zip(mem, jbs)]
-
-            def by_buffer(pend):
-                by_q: dict = {}
-                for i in sorted(pend):
-                    by_q.setdefault(id(pend[i][0]), []).append(i)
-                return by_q.values()
-
-            def flush_into(pend, flight, force):
-                for ids in by_buffer(pend):
-                    j0 = 0
-                    while len(ids) - j0 >= grp or (force and j0 < len(ids)):
-                        mem = ids[j0:j0 + grp]
-                        j0 += len(mem)
-                        flight.append(submit(pend, mem))
-
-            def post(h, mem, then=lambda i: None):
-                # fetch one submit's results and post each slice's part
-                # to its driver, calling then(slice) after each
-                res = backend.batch_coords_fetch(h)
-                o = 0
-                for i, ni in mem:
-                    drvs[i].post(tuple(a[o:o + ni] for a in res))
-                    o += ni
-                    then(i)
-
-            def run_pooled():
-                # Two halves of the slices take turns: one half's pumps
-                # run at once on the native pool of -threads workers
-                # while the other half's waves are on the card.  A
-                # half's waves go in one submit a strand buffer; a slice
-                # whose pump finds no more work exports at once, in
-                # slice order, on this thread.
-                def pump(ids):
-                    pend = {}
-                    for i, jb in zip(ids, NativePartDriver.pump_many(
-                            [drvs[i] for i in ids])):
-                        if jb is None:
-                            finish_slice(i)
-                        else:
-                            pend[i] = jb
-                    return [submit(pend, mem) for mem in by_buffer(pend)]
-
-                flight = [w for w in (pump(list(range(h, k, 2)))
-                                      for h in range(min(2, k))) if w]
-                while flight:
-                    waves = flight.pop(0)
-                    for h, mem in waves:
-                        post(h, mem)
-                    waves = pump(sorted(i for _, mem in waves
-                                        for i, _ in mem))
-                    if waves:
-                        flight.append(waves)
-
-            def run_slices(slice_ids, lock=None):
-                # one grouped pump/submit/fetch/post loop over a set of
-                # slices with its own queues (the whole batch for the
-                # default single-thread interleave; a round-robin
-                # partition per worker under SMR_GROUP_WORKERS)
-                pend: dict = {}   # slice -> job tuple awaiting submit
-                flight: list = []  # (handle, [(slice, n_jobs), ...])
-                for i in slice_ids:
-                    pump_into(i, pend, lock)
-                    if len(pend) >= grp:
-                        flush_into(pend, flight, False)
-                flush_into(pend, flight, True)
-                while flight or pend:
-                    if not flight:
-                        flush_into(pend, flight, True)
-                        continue
-                    post(*flight.pop(0),
-                         then=lambda i: pump_into(i, pend, lock))
-                    flush_into(pend, flight, depth > len(flight))
-
-            if pooled:
-                run_pooled()
-            elif int(os.environ.get("SMR_PUMP_HELPER", "0")):
-                # Async-pump variant: ONE helper thread runs the native
-                # pumps (trav_pump is a ctypes call -- the GIL is
-                # released for the whole C++ stage), so the pump keeps
-                # running while the main thread submits and fetches.
-                # Posts, submits, fetches and exports stay on the main
-                # thread; each slice's post happens-before its next
-                # pump, so per-slice order (and byte-identity) is
-                # preserved.  Opt-in: the helper contends with the
-                # pump's internal probe threads for cores.
-                from concurrent.futures import (FIRST_COMPLETED,
-                                                ThreadPoolExecutor,
-                                                wait as _wait)
-                pend: dict = {}
-                flight: list = []
-                with ThreadPoolExecutor(1) as ex:
-                    futs = {i: ex.submit(drvs[i].pump_jobs)
-                            for i in range(k)}
-                    while futs or flight or pend:
-                        moved = False
-                        for i in [i for i, f in futs.items()
-                                  if f.done()]:
-                            jb = futs.pop(i).result()
-                            moved = True
-                            if jb is None:
-                                finish_slice(i)
-                            else:
-                                pend[i] = jb
-                        flush_into(pend, flight,
-                                   not flight and not futs)
-                        if flight:
-                            def resubmit(i):
-                                futs[i] = ex.submit(drvs[i].pump_jobs)
-                            post(*flight.pop(0), then=resubmit)
-                        elif futs and not moved:
-                            _wait(list(futs.values()),
-                                  return_when=FIRST_COMPLETED)
-            elif int(os.environ.get("SMR_GROUP_WORKERS", "1")) > 1:
-                # Symmetric grouped workers: slices partition
-                # round-robin across W threads, each running run_slices
-                # over its own queues.  One worker's GIL-free C stages
-                # (ctypes pump, fetch transfer waits) overlap the
-                # others' GIL-bound glue; finish/readstats updates
-                # serialize on a lock.  Byte-identity holds: slices
-                # never interact and each slice's order is preserved
-                # within its worker.  Opt-in.
-                import threading as _threading
-                nwork = int(os.environ.get("SMR_GROUP_WORKERS", "1"))
-                fin_lock = _threading.Lock()
-                errs: list = []
-
-                def worker(slice_ids):
-                    try:
-                        run_slices(slice_ids, fin_lock)
-                    except BaseException as e:  # noqa: BLE001
-                        errs.append(e)
-
-                ths = [_threading.Thread(
-                    target=worker, args=(list(range(w, k, nwork)),))
-                    for w in range(min(nwork, k))]
-                for t in ths:
-                    t.start()
-                for t in ths:
-                    t.join()
-                if errs:
-                    raise errs[0]
+    def pump(ids):
+        # one pump of each slice of `ids`, all at once on the pool; a
+        # slice whose pump finds no more work exports at once, in slice
+        # order, on this thread
+        pend = {}
+        for i, jb in zip(ids, NativePartDriver.pump_many(
+                [drvs[i] for i in ids])):
+            if jb is None:
+                finish_slice(i)
             else:
-                run_slices(range(k))
+                pend[i] = jb
+        return [submit(pend, mem) for mem in by_buffer(pend)]
+
+    try:
+        flight = [w for w in (pump(list(range(h, k, 2)))
+                              for h in range(min(2, k))) if w]
+        while flight:
+            waves = flight.pop(0)
+            for h, mem in waves:
+                post(h, mem)
+            waves = pump(sorted(i for _, mem in waves for i, _ in mem))
+            if waves:
+                flight.append(waves)
         for i, ((lo, hi), drv) in enumerate(zip(spans, drvs)):
             if not finished[i]:
                 drv.finish(states[lo:hi], readstats)
@@ -882,8 +608,7 @@ def align_part(
         from .part_driver import NativePartDriver
         from ..util import timed
         overlap = (batch.n >= OVERLAP_MIN_READS
-                   and hasattr(backend, "batch_coords_submit")
-                   and _overlap_enabled())
+                   and hasattr(backend, "batch_coords_submit"))
         with timed("part_driver"):
             if overlap:
                 _run_part_overlapped(part, ctx, opts, batch, states,

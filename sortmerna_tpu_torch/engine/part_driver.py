@@ -67,8 +67,7 @@ class NativePartDriver:
     def __init__(self, part, ctx: PartContext, opts: Opts,
                  batch, states: List[ReadState],
                  skiplengths, states_fresh: bool = False,
-                 lo: int = 0, hi: int = None,
-                 threads_override: int = None):
+                 lo: int = 0, hi: int = None):
         self.lib = native.get_lib()
         assert self.lib is not None
         self.ctx = ctx
@@ -172,8 +171,7 @@ class NativePartDriver:
             state5, hit_seeds, is_done, st_off, scs, ixs, mat, skips]
         self._keep = bufs_np            # lifetimes pinned to the driver
         ptrs = np.asarray([a.ctypes.data for a in bufs_np], np.uint64)
-        self.threads = max(1, threads_override if threads_override
-                           is not None else getattr(opts, "threads", 1))
+        self.threads = max(1, opts.threads)
         ip = np.asarray([
             n, len(ctx.ref_seqs),
             len(pbufs[0]), len(pbufs[2]), len(pbufs[5]), len(pbufs[9]),

@@ -314,17 +314,21 @@ def part_ref_context(ctx: RunContext, idx_num: int, part_num: int):
 # post-processing + reports (main.cpp:83-112 task graph)
 
 
+# reads the report sweeps memoize (about 1 KB each); a larger job keeps
+# the streaming view to bound memory
+REPORT_CACHE_MAX = 2_000_000
+
+
 def _report_reads(ctx: RunContext):
     """Reads view for the postprocess/report sweeps: memoized (one
     ReadSeq + its encodings per ordinal, shared across all sweeps) up
-    to SMR_REPORT_CACHE_MAX reads (default 2M, ~1KB each); beyond that
-    the streaming LazyReads view is kept to bound memory."""
+    to REPORT_CACHE_MAX reads; beyond that the streaming LazyReads view
+    is kept to bound memory."""
     cached = getattr(ctx, "_report_reads", None)
     if cached is not None:
         return cached
-    cap = int(os.environ.get("SMR_REPORT_CACHE_MAX", "2000000"))
     reads = ctx.reads
-    if not isinstance(reads, list) and len(reads) <= cap:
+    if not isinstance(reads, list) and len(reads) <= REPORT_CACHE_MAX:
         from ..io.feed import CachedReads
         reads = CachedReads(reads)
     ctx._report_reads = reads

@@ -104,8 +104,8 @@ class TorchSwBackend:
     # jobs sort into few padded shapes.
     _LEN_LADDER = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
                    65536)
-    # Jobs per block; SMR_SW_BLOCK overrides.
-    BLOCK = int(os.environ.get("SMR_SW_BLOCK", "4096"))
+    # Jobs per block.
+    BLOCK = 4096
     # per-block cell budget rows*(lq+lr): full blocks up to ~1024-char
     # tiles; long-read buckets shrink the row count (30K-nt jobs run 64
     # rows a block).  Scales with BLOCK so the row ladder keeps the same
@@ -121,9 +121,9 @@ class TorchSwBackend:
 
     @classmethod
     def _min_block(cls, n: int) -> int:
-        for b in (64, 256, 1024, 4096, cls.BLOCK):
+        for b in (64, 256, 1024, cls.BLOCK):
             if n <= b:
-                return min(b, cls.BLOCK)   # SMR_SW_BLOCK may be < 4096
+                return b
         return cls.BLOCK
 
     @property

@@ -9,9 +9,10 @@ versions); every report must be byte-identical -- aligned.sam without its
     two CLIs share one index directory (the JAX package writes it, the
     port reads it);
 (b) paired reads against two DBs, each split into >= 2 index parts by
-    -m, with >= 8192 reads and SMR_OVERLAP_SPLIT=4, so the grouped
-    submit / fetch scheduler drives the SW waves (the test counts its
-    runs); each CLI builds its own index and Gumbel statistics.
+    -m, with >= 8192 reads cut into 4 slices (the port's
+    OVERLAP_SLICES), so the overlap scheduler drives the SW waves (the
+    test counts its runs); each CLI builds its own index and Gumbel
+    statistics.
 """
 
 import os
@@ -81,9 +82,9 @@ def test_e2e_paired_two_db_multipart_grouped_match_jax(tmp_path,
     r1, r2 = str(tmp_path / "r_1.fasta"), str(tmp_path / "r_2.fasta")
     n_pairs = 4200
     testing.make_paired_reads(r1, r2, s1 + s2, n_pairs, seed=33)
-    monkeypatch.setenv("SMR_OVERLAP_SPLIT", "4")
-    # the grouped submit / fetch scheduler takes batches of at least
-    # OVERLAP_MIN_READS reads; count the port's parts that went through it
+    monkeypatch.setitem(align.OVERLAP_SLICES, "cpu", 4)
+    # the overlap scheduler takes batches of at least OVERLAP_MIN_READS
+    # reads; count the port's parts that went through it
     assert 2 * n_pairs >= align.OVERLAP_MIN_READS
     grouped = []
     orig = align._run_part_overlapped

@@ -1,13 +1,13 @@
-"""The overlap scheduler's default on the native pool: the port's CLI
+"""The overlap scheduler on the native pool: the port's CLI
 against the JAX CLI.
 
-By default the overlap scheduler (engine/align._run_part_overlapped)
-pumps half of a part's slices at once on one persistent pool of
-``-threads`` native workers (native/pool.cpp, ``trav_pump_many``) while
-the other half's waves are on the device.  Reads never interact within a
-part, so at any pool width and slice count the reports must be those of
-the single-driver sweep (``SMR_OVERLAP=0``) and of the JAX CLI, byte for
-byte.  The job is paired (``-paired_in -out2``) against two databases,
+The overlap scheduler (engine/align._run_part_overlapped) pumps half of
+a part's slices at once on one persistent pool of ``-threads`` native
+workers (native/pool.cpp, ``trav_pump_many``) while the other half's
+waves are on the device.  Reads never interact within a part, so at any
+pool width and slice count (OVERLAP_SLICES) the reports must be those of
+the single-driver sweep (a batch under OVERLAP_MIN_READS) and of the JAX
+CLI, byte for byte.  The job is paired (``-paired_in -out2``) against two databases,
 so the second database's units import the states the first left, on
 the pool too.  OVERLAP_MIN_READS is lowered to 1,000 in both packages so
 the scheduler engages; the port runs on ``SMR_TORCH_DEVICE=cpu``.
@@ -39,6 +39,7 @@ from sortmerna_tpu_torch.index import builder as tbuilder   # noqa: E402
 from sortmerna_tpu_torch.ops.seed_probe import SeedSearcher  # noqa: E402
 
 N_PAIRS = 1000
+# the JAX package's scheduler options, cleared for its run
 KNOBS = ("SMR_OVERLAP", "SMR_OVERLAP_SPLIT", "SMR_WAVE_GROUP",
          "SMR_FLUSH_DEPTH", "SMR_PUMP_HELPER", "SMR_GROUP_WORKERS",
          "SMR_OVERLAP_THREADS", "SMR_PUMP_WORKERS")
@@ -90,7 +91,7 @@ def workload(tmp_path_factory):
         assert jcli.main(argv(wd)) == 0
         want = _reports(wd)
         mp.setenv("SMR_TORCH_DEVICE", "cpu")
-        mp.setenv("SMR_OVERLAP", "0")
+        mp.setattr(talign, "OVERLAP_MIN_READS", 2 * N_PAIRS + 1)
         wd = top / "wd_single"
         assert tcli.main(argv(wd)) == 0
         single = _reports(wd)
@@ -104,12 +105,11 @@ def workload(tmp_path_factory):
 
 
 def _pooled_run(workload, monkeypatch, threads, slices, name):
-    """The port's CLI with the scheduler's defaults at ``threads`` and
+    """The port's CLI through the overlap scheduler at ``threads`` and
     ``slices``: (its reports, the slice counts of its pump_many calls)."""
     monkeypatch.setenv("SMR_TORCH_DEVICE", "cpu")
     monkeypatch.setattr(talign, "OVERLAP_MIN_READS", 1000)
-    _clear_knobs(monkeypatch)
-    monkeypatch.setenv("SMR_OVERLAP_SPLIT", str(slices))
+    monkeypatch.setitem(talign.OVERLAP_SLICES, "cpu", slices)
     calls = []
     orig = NativePartDriver.pump_many
 

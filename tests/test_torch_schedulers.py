@@ -1,19 +1,16 @@
-"""The overlap scheduler's variants: the port's CLI against the JAX CLI.
+"""The overlap scheduler's slice counts: the port's CLI against the JAX
+CLI.
 
 The overlap scheduler (engine/align._run_part_overlapped) cuts a part's
-batch into read-range slices and pipelines their host stages against
-their SW waves; its opt-in variants (SMR_WAVE_GROUP, SMR_FLUSH_DEPTH,
-SMR_PUMP_HELPER, SMR_GROUP_WORKERS, SMR_OVERLAP_THREADS,
-SMR_PUMP_WORKERS) run those stages from one or several threads.  Reads
-never interact within a part, so every setting, and the single-driver
-sweep (SMR_OVERLAP=0), must write the JAX CLI's reports byte for byte.
-
-The settings are those of tests/test_overlap.py plus SMR_OVERLAP=0,
-SMR_OVERLAP_THREADS=2 and SMR_PUMP_WORKERS=2, on 2,000 seeded synthetic
-reads (that file reads a dataset that is not in the repository).
-OVERLAP_MIN_READS is lowered to 1,000 in both packages so the scheduler
-engages.  The JAX CLI runs once, with its defaults: its own test holds
-its output the same under every setting.  The port runs on
+batch into read-range slices (OVERLAP_SLICES) and pumps the two halves
+of them in turns on the native pool while the other half's SW waves are
+on the device.  Reads never interact within a part, so at every slice
+count -- even (equal halves), odd (unequal halves), the card's 24 -- and
+in the single-driver sweep (a batch under OVERLAP_MIN_READS) the port
+must write the JAX CLI's reports byte for byte, on 2,000 seeded
+synthetic reads.  OVERLAP_MIN_READS is lowered to 1,000 in both packages
+so the scheduler engages.  The JAX CLI runs once, with its defaults, the
+scheduler's environment options cleared.  The port runs on
 ``SMR_TORCH_DEVICE=cpu``, i.e. the kernels' plain PyTorch versions.
 """
 
@@ -29,21 +26,19 @@ from sortmerna_tpu.engine import align as jalign            # noqa: E402
 from sortmerna_tpu_torch import cli as tcli                 # noqa: E402
 from sortmerna_tpu_torch import testing                     # noqa: E402
 from sortmerna_tpu_torch.engine import align as talign      # noqa: E402
+from sortmerna_tpu_torch.engine.part_driver import \
+    NativePartDriver                                        # noqa: E402
 
 N_READS = 2000
 REPORTS = ("aligned.blast", "aligned.fa", "other.fa", "otu_map.txt",
            "aligned_denovo.fa", "aligned.sam", "aligned.log")
-SETTINGS = {
-    "single": {"SMR_OVERLAP": "0"},
-    "grp3": {"SMR_OVERLAP_SPLIT": "8", "SMR_WAVE_GROUP": "3"},
-    "grp1": {"SMR_OVERLAP_SPLIT": "8", "SMR_WAVE_GROUP": "1"},
-    "helper": {"SMR_OVERLAP_SPLIT": "6", "SMR_PUMP_HELPER": "1"},
-    "workers2": {"SMR_OVERLAP_SPLIT": "8", "SMR_GROUP_WORKERS": "2"},
-    "depth1": {"SMR_OVERLAP_SPLIT": "8", "SMR_FLUSH_DEPTH": "1"},
-    "threads2": {"SMR_OVERLAP_SPLIT": "8", "SMR_OVERLAP_THREADS": "2"},
-    "pump2": {"SMR_OVERLAP_SPLIT": "8", "SMR_PUMP_WORKERS": "2"},
-}
-KNOBS = sorted({k for env in SETTINGS.values() for k in env})
+# slices a part's batch is cut into; None: the single-driver sweep
+SETTINGS = {"single": None, **{f"slices{k}": k
+                               for k in (2, 3, 5, 8, 13, 24, 32)}}
+# the JAX package's scheduler options, cleared for its run
+KNOBS = ("SMR_OVERLAP", "SMR_OVERLAP_SPLIT", "SMR_WAVE_GROUP",
+         "SMR_FLUSH_DEPTH", "SMR_PUMP_HELPER", "SMR_GROUP_WORKERS",
+         "SMR_OVERLAP_THREADS", "SMR_PUMP_WORKERS")
 
 
 def _clear_knobs(mp):
@@ -89,23 +84,37 @@ def workload(tmp_path_factory):
 @pytest.mark.parametrize("name", list(SETTINGS))
 def test_scheduler_setting_matches_jax(workload, name, monkeypatch):
     top, argv, want = workload
+    slices = SETTINGS[name]
     monkeypatch.setenv("SMR_TORCH_DEVICE", "cpu")
-    monkeypatch.setattr(talign, "OVERLAP_MIN_READS", 1000)
-    _clear_knobs(monkeypatch)
-    for k, v in SETTINGS[name].items():
-        monkeypatch.setenv(k, v)
-    overlapped = []
+    monkeypatch.setattr(talign, "OVERLAP_MIN_READS",
+                        1000 if slices else N_READS + 1)
+    if slices:
+        monkeypatch.setitem(talign.OVERLAP_SLICES, "cpu", slices)
+    overlapped, calls = [], []
     orig = talign._run_part_overlapped
+    orig_pump = NativePartDriver.pump_many
 
     def spy(*a, **kw):
         overlapped.append(1)
         return orig(*a, **kw)
 
+    def pump_spy(drvs):
+        calls.append(len(drvs))
+        return orig_pump(drvs)
+
     monkeypatch.setattr(talign, "_run_part_overlapped", spy)
+    monkeypatch.setattr(NativePartDriver, "pump_many",
+                        staticmethod(pump_spy))
     wd = top / f"wd_{name}"
     assert tcli.main(argv(wd)) == 0
-    # one index part, one batch: one overlapped run unless it is off
-    assert len(overlapped) == (0 if name == "single" else 1)
+    # one index part, one batch: one overlapped run unless it is off,
+    # each pump on the pool a half of the slices at most
+    assert len(overlapped) == (1 if slices else 0)
+    if slices:
+        half = -(-slices // 2)
+        assert calls and max(calls) == half
+    else:
+        assert calls == []
     got = testing.read_outputs(str(wd / "out"), [str(wd)])
     for report in REPORTS:
         assert got[report] == want[report], report
