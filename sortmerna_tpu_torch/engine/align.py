@@ -596,7 +596,7 @@ def align_part(
         # the native engine packs (seq,pos,win) into 64-bit keys with
         # 24-bit positions; gigantic single references fall back to the
         # python path
-        native_ok = max(len(s) for s in ctx.ref_seqs) < (1 << 24)
+        native_ok = int(np.diff(ctx.ref_seqs.off).max()) < (1 << 24)
 
     # fully-native part driver: the whole pass/strand loop runs in C++
     # (native/driver.cpp); python only pumps device SW waves.  The

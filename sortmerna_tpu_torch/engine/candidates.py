@@ -37,7 +37,8 @@ class PartContext:
     pos_offsets: np.ndarray
     pos_seq: np.ndarray
     pos_pos: np.ndarray
-    ref_seqs: List[np.ndarray]     # 04-encoded (NT_TABLE) reference seqs
+    ref_seqs: object               # 04-encoded (NT_TABLE) references of
+                                   # the part: index.artifact.PartRefs
     minimal_score: int
     lnwin: int
     is_last_index: bool

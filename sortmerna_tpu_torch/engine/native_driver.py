@@ -30,19 +30,8 @@ class NativeCandidateEngine:
         self.n_reads = len(reads)
         self._forward = forward
 
-        # concatenated 04 buffers (kept alive for the engine's lifetime);
-        # cached on the PartContext: identical for both strands
-        cached = getattr(ctx, "_refs_concat", None)
-        if cached is None:
-            refs_off = np.zeros(len(ctx.ref_seqs) + 1, dtype=np.int64)
-            for i, s in enumerate(ctx.ref_seqs):
-                refs_off[i + 1] = refs_off[i] + len(s)
-            refs_data = (np.concatenate(
-                [np.asarray(s, np.uint8) for s in ctx.ref_seqs])
-                if ctx.ref_seqs else np.zeros(0, np.uint8))
-            cached = (refs_data, refs_off)
-            ctx._refs_concat = cached
-        self.refs_data, self.refs_off = cached
+        # the part's flat 04 buffers (kept alive for the engine's lifetime)
+        self.refs_data, self.refs_off = ctx.ref_seqs.data, ctx.ref_seqs.off
 
         if batch is None:
             from .read import ReadBatch

@@ -81,17 +81,7 @@ class NativePartDriver:
 
         pbufs = _part_probe_bufs(part)
 
-        cached = getattr(ctx, "_refs_concat", None)
-        if cached is None:
-            refs_off = np.zeros(len(ctx.ref_seqs) + 1, dtype=np.int64)
-            for i, s in enumerate(ctx.ref_seqs):
-                refs_off[i + 1] = refs_off[i] + len(s)
-            refs_data = (np.concatenate(
-                [np.asarray(s, np.uint8) for s in ctx.ref_seqs])
-                if ctx.ref_seqs else np.zeros(0, np.uint8))
-            cached = (refs_data, refs_off)
-            ctx._refs_concat = cached
-        self.refs_data, self.refs_off = cached
+        self.refs_data, self.refs_off = ctx.ref_seqs.data, ctx.ref_seqs.off
 
         from ..util import tally, timed, timers_enabled
         with timed("batch_enc"):

@@ -34,18 +34,14 @@ def _report_batch(ctx):
 
 
 def precompute_part_stats(ctx, idx_num: int, part_num: int,
-                          ref_seqs) -> None:
-    """Attach ``mgm`` to every alignment of (idx_num, part_num)."""
+                          refs) -> None:
+    """Attach ``mgm`` to every alignment of (idx_num, part_num);
+    ``refs`` is the part's index.artifact.PartRefs."""
     lib = native.get_lib()
     if lib is None:
         return
     batch = _report_batch(ctx)
-    refs_off = np.zeros(len(ref_seqs) + 1, np.int64)
-    for i, s in enumerate(ref_seqs):
-        refs_off[i + 1] = refs_off[i] + len(s)
-    refs_data = (np.concatenate(
-        [np.asarray(s, np.uint8) for s in ref_seqs])
-        if len(ref_seqs) else np.zeros(0, np.uint8))
+    refs_off, refs_data = refs.off, refs.data
 
     alns = []
     for ord_, st in enumerate(ctx.states):

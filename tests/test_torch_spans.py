@@ -52,7 +52,8 @@ NEW_METRICS = ("part_driver.host_s_per_mnt", "sw.wait_s_per_mnt",
                "sw.useful_share", "state_save.s_per_mnt",
                "sw.rounds_per_start", "state_walk.s_per_mnt",
                "align_db.max_s_per_mnt", "multidb.passes_per_read",
-               "pump.pool_occupancy")
+               "pump.pool_occupancy", "ref_map.hit_share",
+               "ref_load.s_per_mnt")
 HOST_STAGES = ("trav_pump", "fsm_jobs", "fsm_post", "fsm_apply",
                "batch_enc", "state_import", "engine_init")
 
@@ -140,6 +141,7 @@ def test_spans_nest_on_the_trace(traced):
                          ("index_load", "prepare"), ("refstats", "prepare"),
                          ("run_align", "run_all"),
                          ("part_driver", "run_align"),
+                         ("ref_load", "run_align"),
                          ("trav_pump", "part_driver"),
                          ("state_save", "run_all"),
                          ("summary", "run_all"),
@@ -161,7 +163,8 @@ def test_timers_agree_with_the_trace(traced):
         cnt[name] += 1
     spans_s = {k: v for k, v in timers.items()       # counts, not spans
                if not k.startswith(("sw_jobs_", "sw_fsm_",
-                                    "db_reads_", "pump_pool_"))}
+                                    "db_reads_", "pump_pool_",
+                                    "ref_mapped", "ref_parsed"))}
     for name, (s, n) in spans_s.items():
         assert cnt[name] == n, name
         # a span's two clocks are read microseconds apart at each end; a
@@ -194,6 +197,47 @@ def test_readers_find_nothing_in_an_empty_run():
                reads=0, sw_launches=0, sw_bound_s=0.0)
     for m in NEW_METRICS:
         assert reader(m)(obs) is None, m
+
+
+def test_reference_spans_and_their_readers(tmp_path, monkeypatch):
+    """A job on an empty index directory parses each part's references
+    in its align pass and maps them in its report sweep: spans on, it
+    records ``ref_load`` once an acquisition and counts each as
+    ``ref_parsed`` or ``ref_mapped``; spans off, it records nothing."""
+    db, reads = str(tmp_path / "db.fa"), str(tmp_path / "r.fa")
+    seqs = testing.make_db(db, 30, n_families=3, len_range=(1300, 1500),
+                           seed=7)
+    testing.make_reads(reads, seqs, 200, seed=8)
+    monkeypatch.setenv("SMR_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("SMR_TPU_LOG", "0")
+    got = {}
+    for on in (True, False):
+        (tmp_path / f"idx{on}").mkdir()
+        monkeypatch.setattr(util, "_TIMERS_ON", on)
+        monkeypatch.setattr(util, "TIMERS", {})
+        assert tcli.main(["-ref", db, "-reads", reads, "-blast", "1",
+                          "-idx-dir", str(tmp_path / f"idx{on}"),
+                          "-workdir", str(tmp_path / f"wd{on}")]) == 0
+        got[on] = {k: list(v) for k, v in util.TIMERS.items()}
+    assert got[False] == {}
+    t = got[True]
+    assert t["ref_parsed"] == [0.0, 1] and t["ref_mapped"] == [0.0, 1]
+    assert t["ref_load"][1] == 2 and t["ref_load"][0] > 0
+    obs = dict(timers=t, mnt=0.5)
+    assert reader("ref_map.hit_share")(obs) == 50.0
+    assert reader("ref_load.s_per_mnt")(obs) == t["ref_load"][0] / 0.5
+
+
+def test_reference_readers_on_small_counts():
+    hit = reader("ref_map.hit_share")
+    load = reader("ref_load.s_per_mnt")
+    assert hit(dict(timers={"ref_mapped": [0.0, 15]})) == 100.0
+    assert hit(dict(timers={"ref_parsed": [0.0, 4]})) == 0.0
+    assert hit(dict(timers={"ref_mapped": [0.0, 1],
+                            "ref_parsed": [0.0, 3]})) == 25.0
+    assert hit(dict(timers={"ref_load": [0.2, 4]})) is None
+    assert load(dict(timers={"ref_load": [0.2, 4]}, mnt=4.0)) == 0.05
+    assert load(dict(timers={"ref_mapped": [0.0, 4]}, mnt=4.0)) is None
 
 
 # the long-read cell's flags (benchmark/configs/rrna-filter-longread.json)
